@@ -1,0 +1,458 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Builds the fused measure/apply CUDA kernels from ``coherent_rtlsdr_tpu_torch/
+csrc`` and drives the port's main path at the production width (N = 21
+channels, L = 8192, W = 2L = 128^2), phase by phase:
+
+  1. device, versions, kernel build;
+  2. each kernel (the reference-spectrum and channel halves of measure, and
+     apply) against its plain PyTorch version, at m = 128 (N = 21, T = 5)
+     and m = 64, on random and on synthetic correlated bytes;
+  3. the offline engine ``align_offline`` at T = 256 blocks: samples/s, and
+     the launch counts showing it ran through the kernels;
+  4. quality against synthetic truth (residual phase and lag);
+  5. the streaming runner ``make_packed_scan_runner`` at K = 32 for 4 calls,
+     with launch counts, then each kernel against its plain version on the
+     inputs one more streaming step gives it;
+  6. each kernel against its plain version at the offline shapes, timed;
+  7. one streaming call and one offline run under torch.profiler: device
+     busy time and idle share.
+
+Every phase prints one JSON line; a failed check raises, so the exit code is
+not 0. Before the last line it prints the card's name and power limit and a
+JSON summary of the kernels; the last line is
+``{"ok": true, "device": {...}}``. Needs a CUDA device and the repository's
+package next to this file.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# Bars (phase 2 and 6): kernel against plain version on the same inputs.
+LAG_ATOL = 1e-3          # samples
+SCALAR_RTOL = 1e-3       # |z|, mag, papr
+D_ULP_SHARE = 1e-3       # share of D elements more than 1 bf16 ulp apart
+WIRE_MAX_LSB = 2         # apply: max |diff| of the int8 wire bytes
+WIRE_GT1_SHARE = 1e-3    # apply: share of wire bytes more than 1 LSB apart
+MIN_CORR_MAG = 0.1       # PipelineConfig.min_corr_mag: measurements used at or above
+# Quality bars (phase 4) on the port's own synthetic truth.
+PHASE_ERR_DEG = 0.1
+LAG_ERR_SAMPLES = 5e-3
+
+N_CH, L = 21, 8192
+T_OFFLINE, K_STREAM, CALLS_STREAM = 256, 32, 4
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn):
+    """Device time of one run of ``fn``, between two CUDA events (ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def device_profile(fn):
+    """Wall time (ms) of ``fn()`` to a synchronize, and the device time of
+    the kernels it ran (from torch.profiler): total, idle share of the wall
+    time, and the five largest by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
+                kernel_names=len(by_name), top_ms=dict(top))
+
+
+def ulp_apart(a, b):
+    """bf16 ulps between two bf16 tensors of the same sign pattern."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+def compare_measure(got, want, where):
+    """Hold the kernel's measure outputs to the plain version's.
+
+    The scalars are held where the pipeline uses the measurement (mag >=
+    MIN_CORR_MAG). On uncorrelated bytes the phase-zoom sums nearly cancel
+    and float32 summation order alone moves the lag by up to ~0.3 samples
+    (measured on the H100), so there only the accept/reject decision, the
+    stored spectra and finiteness are held, and the spread is reported."""
+    names = ("lag", "z_re", "z_im", "mag", "papr")
+    for name, x in zip(names, got[:5]):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{where}: non-finite {name}")
+    used = want[3] >= MIN_CORR_MAG
+    if not torch.equal(got[3] >= MIN_CORR_MAG, used):
+        raise AssertionError(f"{where}: kernel and plain version gate windows differently")
+    rel = {"windows_used": int(used.sum().item()), "windows": used.numel(),
+           "lag_max_abs_err_unused": (got[0] - want[0])[~used].abs().max().item()
+           if (~used).any() else 0.0}
+    lag_err = (got[0] - want[0])[used].abs().max().item() if used.any() else 0.0
+    if not lag_err <= LAG_ATOL:
+        raise AssertionError(f"{where}: lag off by {lag_err} > {LAG_ATOL}")
+    zabs_g = torch.sqrt(got[1] ** 2 + got[2] ** 2)
+    zabs_w = torch.sqrt(want[1] ** 2 + want[2] ** 2)
+    for name, g, w in (("|z|", zabs_g, zabs_w), ("mag", got[3], want[3]),
+                       ("papr", got[4], want[4])):
+        rel[name] = ((g - w).abs() / w.abs().clamp(min=1e-30))[used].max().item() \
+            if used.any() else 0.0
+        if not rel[name] <= SCALAR_RTOL:
+            raise AssertionError(f"{where}: {name} rel err {rel[name]} > {SCALAR_RTOL}")
+    for name, g, w in (("dre", got[5], want[5]), ("dim", got[6], want[6])):
+        share = (ulp_apart(g, w) > 1).float().mean().item()
+        rel[f"{name}_share_gt1ulp"] = share
+        if not share < D_ULP_SHARE:
+            raise AssertionError(f"{where}: {name} share > 1 ulp {share} >= {D_ULP_SHARE}")
+    return lag_err, rel
+
+
+def compare_ref(got, want, where):
+    """Hold the reference kernel's (R, eref) to the plain version's: R, the
+    same transform as D kept in float32, by the D bar after rounding both to
+    bf16; eref to SCALAR_RTOL."""
+    (r_got, e_got), (r_want, e_want) = got, want
+    if not (torch.isfinite(r_got).all() and torch.isfinite(e_got).all()):
+        raise AssertionError(f"{where}: non-finite reference spectrum")
+    share = (ulp_apart(r_got.to(torch.bfloat16), r_want.to(torch.bfloat16)) > 1) \
+        .float().mean().item()
+    e_rel = ((e_got - e_want).abs() / e_want.clamp(min=1e-30)).max().item()
+    if not (share < D_ULP_SHARE and e_rel <= SCALAR_RTOL):
+        raise AssertionError(f"{where}: R share > 1 ulp {share}, eref rel err {e_rel}")
+    return dict(R_max_abs_err=(r_got - r_want).abs().max().item(),
+                R_max_abs=r_want.abs().max().item(), R_share_gt1ulp=share, eref_rel_err=e_rel)
+
+
+def hold_measure(k, raw, ref_raw, where):
+    """Both measure kernels against their plain versions on the same bytes.
+    measure_spec gets the reference kernel's R on both sides, so each kernel
+    is held alone. Returns (errors, plain measure_spec outputs)."""
+    r_got = k.measure_ref(ref_raw)
+    r_want = k.measure_ref_plain(ref_raw)
+    got = k.measure_spec(raw, *r_got)
+    want = k.measure_spec_plain(raw, *r_got)
+    torch.cuda.synchronize()
+    errs = compare_ref(r_got, r_want, where)
+    errs["lag_max_abs_err"], errs["rel_err"] = compare_measure(got, want, where)
+    errs["mag_min"] = want[3].min().item()
+    return errs, want
+
+
+def compare_wire(got, want, where):
+    d = (got.int() - want.int()).abs()
+    mx, share = d.max().item(), (d > 1).float().mean().item()
+    if not (mx <= WIRE_MAX_LSB and share < WIRE_GT1_SHARE):
+        raise AssertionError(f"{where}: wire max {mx} LSB, share > 1 LSB {share}")
+    return mx, share
+
+
+def hold_apply(k, args, where):
+    """The apply kernel against its plain version on the same arguments."""
+    mx, share = compare_wire(k.apply_spec_i8(*args), k.apply_spec_i8_plain(*args), where)
+    return dict(wire_max_lsb=mx, wire_share_gt1=share)
+
+
+WRAPPERS = ("measure_ref", "measure_spec", "apply_spec_i8")
+
+
+def kernel_inputs(k, fn):
+    """Run ``fn()`` with each kernel wrapper of ``k`` recording its
+    arguments; returns ``{wrapper: arguments of its last call}``."""
+    seen = {}
+
+    def recorder(name, wrapped):
+        def record(*args):
+            seen[name] = args
+            return wrapped(*args)
+        return record
+
+    for name in WRAPPERS:
+        setattr(k, name, recorder(name, getattr(k, name)))
+    try:
+        fn()
+    finally:
+        for name in WRAPPERS:
+            delattr(k, name)
+    return seen
+
+
+def launched_only_kernels(counts, n, where):
+    """Every kernel launched n times, no plain version run."""
+    want = dict(measure_ref_launches=n, measure_launches=n, apply_launches=n,
+                measure_ref_plain_runs=0, measure_plain_runs=0, apply_plain_runs=0)
+    if counts != want:
+        raise AssertionError(f"{where} did not run through the kernels: {counts}")
+
+
+def synth_raw(n_blocks, block_len, n_ch, seed, dev):
+    """Correlated signed blocks from the port's synthesizer: (raw [T, N,
+    m/2, 2m], ref_raw [T, m/2, 2m], capture)."""
+    from coherent_rtlsdr_tpu_torch.ops.convert import u8_to_i8
+    from coherent_rtlsdr_tpu_torch.signal import make_truth, synth_capture
+
+    m = int(round((2 * block_len) ** 0.5))
+    truth = make_truth(n_ch, seed=seed, max_delay=40.0, snr_db=30.0)
+    cap = synth_capture(torch.Generator(device=dev).manual_seed(seed), truth,
+                        n_blocks=n_blocks, block_len=block_len)
+    raw = u8_to_i8(cap.sig_u8.reshape(n_blocks, n_ch, m // 2, 2 * m))
+    ref_raw = u8_to_i8(cap.ref_u8.reshape(n_blocks, m // 2, 2 * m))
+    return raw, ref_raw, cap
+
+
+def phase_kernels(dev):
+    """Phase 2: kernel against plain version at m = 128 and m = 64."""
+    from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels
+
+    out = []
+    for m, n_ch in ((128, N_CH), (64, N_CH)):
+        k = FusedPipelineKernels(m * m, dev)
+        g = torch.Generator(device=dev).manual_seed(m)
+        inputs = {
+            "random": (
+                torch.randint(-128, 128, (5, n_ch, m // 2, 2 * m), generator=g, device=dev,
+                              dtype=torch.int8),
+                torch.randint(-128, 128, (5, m // 2, 2 * m), generator=g, device=dev,
+                              dtype=torch.int8)),
+            "correlated": synth_raw(5, m * m // 2, n_ch, seed=m, dev=dev)[:2],
+        }
+        for kind, (raw, ref_raw) in inputs.items():
+            where = f"m={m} {kind}"
+            errs, want = hold_measure(k, raw, ref_raw, where)
+            adv = (torch.rand((4, n_ch), generator=g, device=dev) - 0.5) * 80.0
+            ph = torch.rand((4, n_ch), generator=g, device=dev) * 6.283185307179586
+            errs.update(hold_apply(k, (want[5], want[6], adv, torch.cos(ph), torch.sin(ph)),
+                                   where))
+            out.append(dict(m=m, N=n_ch, T=5, inputs=kind, **errs))
+    return out
+
+
+def offline_run(cfg, sig_u8, ref_u8):
+    from coherent_rtlsdr_tpu_torch.pipeline import align_offline
+
+    return align_offline(cfg, sig_u8, ref_u8, smoothing="global")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+    from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
+    from coherent_rtlsdr_tpu_torch.pipeline import (
+        PipelineConfig,
+        init_state,
+        make_packed_scan_runner,
+        step,
+    )
+    from coherent_rtlsdr_tpu_torch.pipeline.state import (
+        TELEMETRY_COLS,
+        pack_state,
+        unpack_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. Device and build.
+    report = fused_cuda.build()
+    regs = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+            for src, log in report.items() if src != "seconds"}
+    emit(dict(phase="device_and_build", card=smi, torch=torch.__version__,
+              cuda=torch.version.cuda, nvcc_build_s=report["seconds"], ptxas=regs))
+
+    # 2. Kernel against plain version.
+    emit(dict(phase="kernel_vs_plain", card=smi, results=phase_kernels(dev)))
+
+    cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                         lag_method="phase_zoom")
+    k = get_fused_kernels(2 * L, dev)
+
+    # 3. Offline engine at full width.
+    raw, ref_raw, cap = synth_raw(T_OFFLINE, L, N_CH, seed=3, dev=dev)
+    sig_u8 = cap.sig_u8.reshape(T_OFFLINE, N_CH, 2 * L)
+    ref_u8 = cap.ref_u8.reshape(T_OFFLINE, 2 * L)
+    offline_run(cfg, sig_u8, ref_u8)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = None
+
+    def drive_offline():
+        nonlocal res
+        res = offline_run(cfg, sig_u8, ref_u8)
+
+    k.reset_counts()
+    ms_runs = [cuda_ms(drive_offline) for _ in range(7)]
+    counts_offline = k.counts()
+    launched_only_kernels(counts_offline, 7, "offline engine")
+    ms_offline = statistics.median(ms_runs)
+    samples = (T_OFFLINE - 1) * N_CH * L
+    delays = res.delay[0].cpu().numpy()
+    lag_truth_err = float(abs(delays - cap.truth.delays).max())
+    if not (tuple(res.wire.shape) == (T_OFFLINE - 1, N_CH, 2 * L)
+            and torch.isfinite(res.lag).all() and lag_truth_err < 0.05
+            and res.mag.min().item() > 0.5):
+        raise AssertionError(f"offline output wrong: max |delay - truth| {lag_truth_err}, "
+                             f"min mag {res.mag.min().item()}")
+    emit(dict(phase="offline", card=smi, N=N_CH, L=L, T=T_OFFLINE, smoothing="global",
+              ms_median=ms_offline, ms_runs=ms_runs, samples_per_s=samples / ms_offline * 1e3,
+              realtime_x=samples / ms_offline * 1e3 / (N_CH * 2.048e6),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              max_abs_delay_minus_truth=lag_truth_err, launches=counts_offline))
+
+    # 4. Quality against synthetic truth (bench.py:bench_quality recipe).
+    q_raw, q_ref, q_cap = synth_raw(16, L, N_CH, seed=7, dev=dev)
+    q = offline_run(cfg, q_cap.sig_u8.reshape(16, N_CH, 2 * L), q_cap.ref_u8.reshape(16, 2 * L))
+    z = (q.aligned * q.ref.conj()[:, None, :]).sum(-1)
+    errs_deg = torch.rad2deg(torch.angle(z))[2:].double()
+    phase_rms = errs_deg.pow(2).mean().sqrt().item()
+    lag_err = q.delay[2:].double().cpu() - torch.from_numpy(q_cap.truth.delays).double()[None]
+    lag_rms = lag_err.pow(2).mean().sqrt().item()
+    emit(dict(phase="quality", card=smi, N=N_CH, L=L, T=16, phase_err_deg_rms=phase_rms,
+              residual_lag_rms_samples=lag_rms, bars=[PHASE_ERR_DEG, LAG_ERR_SAMPLES]))
+    if not (phase_rms <= PHASE_ERR_DEG and lag_rms <= LAG_ERR_SAMPLES):
+        raise AssertionError(f"quality: {phase_rms} deg, {lag_rms} samples")
+
+    # 5. Streaming: the packed scan runner on a continuous synthetic stream.
+    n_stream = K_STREAM * CALLS_STREAM
+    n_synth = n_stream + K_STREAM   # one more call's blocks for phase 7
+    _, _, s_cap = synth_raw(n_synth, L, N_CH, seed=5, dev=dev)
+    sigs = s_cap.sig_u8.reshape(n_synth, N_CH, 2 * L)
+    refs = s_cap.ref_u8.reshape(n_synth, 2 * L)
+    seqs = torch.arange(1, n_synth + 1, device=dev)[:, None].expand(n_synth, N_CH)
+    run = make_packed_scan_runner(cfg)
+    pstate = pack_state(init_state(cfg, dev))
+    call_s = []
+    k.reset_counts()
+    for c in range(CALLS_STREAM):
+        blk = slice(c * K_STREAM, (c + 1) * K_STREAM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pstate, (wire, wire_ref), telem = run(pstate, sigs[blk], refs[blk], True, seqs[blk])
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    counts_stream = k.counts()
+    launched_only_kernels(counts_stream, n_stream, "streaming")
+    # Each kernel against its plain version on the inputs the next streaming
+    # step gives it: the history and current block, the control law's
+    # advance and the phase EMA's factor.
+    seen = kernel_inputs(k, lambda: step(cfg, unpack_state(*pstate), sigs[n_stream],
+                                         refs[n_stream], True, seq=seqs[n_stream]))
+    errs_step, _ = hold_measure(k, seen["measure_spec"][0], seen["measure_ref"][0],
+                                "streaming step")
+    errs_step.update(hold_apply(k, seen["apply_spec_i8"], "streaming step"))
+    errs_step.update(measure_shape=list(seen["measure_spec"][0].shape),
+                     apply_shape=list(seen["apply_spec_i8"][0].shape))
+    col = {name: i for i, name in enumerate(TELEMETRY_COLS)}
+    synced = telem[-1, :, col["synced"]]
+    delay_final = pstate[0][:, 0].cpu().numpy()
+    res_truth = delay_final - s_cap.truth.delays
+    resid_tel = telem[-1, :, col["residual"]]
+    steady = sum(call_s[1:])
+    emit(dict(phase="streaming", card=smi, N=N_CH, L=L, K=K_STREAM, calls=CALLS_STREAM,
+              call_s=call_s,
+              samples_per_s_after_first_call=(CALLS_STREAM - 1) * K_STREAM * N_CH * L / steady,
+              synced=int(synced.sum().item()),
+              residual_lag_rms_vs_truth=float((res_truth ** 2).mean() ** 0.5),
+              telemetry_residual_rms=resid_tel.pow(2).mean().sqrt().item(),
+              launches=counts_stream, kernel_vs_plain=errs_step))
+    if not (synced.all() and tuple(wire.shape) == (K_STREAM, N_CH, 2 * L)
+            and torch.isfinite(telem).all()):
+        raise AssertionError("streaming: not every channel synced or bad output")
+
+    # 6. Kernels against plain versions at the offline shapes, timed.
+    errs6, want = hold_measure(k, raw, ref_raw, "offline shapes")
+    adv = res.delay.contiguous()
+    pre, pim = res.phase.real.contiguous(), res.phase.imag.contiguous()
+    errs6.update(hold_apply(k, (want[5], want[6], adv, pre, pim), "offline shapes"))
+    del want
+    R, eref = k.measure_ref(ref_raw)
+    meas = k.measure_spec(raw, R, eref)
+    fns = {
+        "measure_ref": lambda: k.measure_ref(ref_raw),
+        "measure_ref_plain": lambda: k.measure_ref_plain(ref_raw),
+        "measure": lambda: k.measure_spec(raw, R, eref),
+        "measure_plain": lambda: k.measure_spec_plain(raw, R, eref),
+        "apply": lambda: k.apply_spec_i8(meas[5], meas[6], adv, pre, pim),
+        "apply_plain": lambda: k.apply_spec_i8_plain(meas[5], meas[6], adv, pre, pim),
+    }
+    times = {name: [] for name in fns}
+    for name in fns:
+        cuda_ms(fns[name])   # warm-up
+    for order in (("plain", ""), ("", "plain"), ("", "plain"), ("plain", "")):
+        for base in ("measure_ref", "measure", "apply"):
+            for suffix in order:
+                name = base + ("_" + suffix if suffix else "")
+                times[name].append(cuda_ms(fns[name]))
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    emit(dict(phase="kernel_times", card=smi, N=N_CH, L=L, T=T_OFFLINE, ms=ms, runs=times,
+              kernel_vs_plain=errs6))
+
+    # 7. Where the time goes: one more streaming call and one offline run
+    # under torch.profiler.
+    blk = slice(n_stream, n_synth)
+    emit(dict(phase="profile", card=smi,
+              streaming_call=device_profile(
+                  lambda: run(pstate, sigs[blk], refs[blk], True, seqs[blk])),
+              offline=device_profile(lambda: offline_run(cfg, sig_u8, ref_u8))))
+
+    # launches: the main path's runs (phases 3 and 5); max_abs_err: the
+    # larger of the streaming-step and offline-shape comparisons (R for the
+    # reference kernel, lag in samples for measure, wire LSB for apply).
+    launches = {c: counts_offline[c] + counts_stream[c] for c in counts_offline}
+    worst = lambda key: max(errs_step[key], errs6[key])
+    print(smi, flush=True)
+    emit({"kernels": [
+        dict(name="fused_measure_ref", route="cuda",
+             source="coherent_rtlsdr_tpu_torch/csrc/fused_measure.cu",
+             replaces="coherent_rtlsdr_tpu/kernels/pallas_fused.py:356",
+             launches=launches["measure_ref_launches"], max_abs_err=worst("R_max_abs_err"),
+             ms=ms["measure_ref"], plain_ms=ms["measure_ref_plain"]),
+        dict(name="fused_measure_i8_spec", route="cuda",
+             source="coherent_rtlsdr_tpu_torch/csrc/fused_measure.cu",
+             replaces="coherent_rtlsdr_tpu/kernels/pallas_fused.py:338",
+             launches=launches["measure_launches"], max_abs_err=worst("lag_max_abs_err"),
+             ms=ms["measure"], plain_ms=ms["measure_plain"]),
+        dict(name="fused_apply_spec_i8", route="cuda",
+             source="coherent_rtlsdr_tpu_torch/csrc/fused_apply.cu",
+             replaces="coherent_rtlsdr_tpu/kernels/pallas_fused.py:392",
+             launches=launches["apply_launches"], max_abs_err=worst("wire_max_lsb"),
+             ms=ms["apply"], plain_ms=ms["apply_plain"]),
+    ]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

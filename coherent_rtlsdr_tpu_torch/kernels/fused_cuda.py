@@ -1,0 +1,194 @@
+"""Build and bind the hand-written CUDA kernels of ``kernels/fused.py``.
+
+The sources in ``csrc/`` have a plain C interface. At first use each is
+compiled by its own ``nvcc`` process (all started together) for ``sm_90a``
+into a shared library under ``build/torch_kernels/`` at the checkout root,
+named by a hash of the sources and flags so that a changed source rebuilds,
+and loaded with ``ctypes``. Each C entry point launches one kernel, on
+PyTorch's current stream; its wrapper here allocates the outputs with
+``torch.empty``, checks what the kernel takes, raises on a CUDA error code,
+and otherwise adds one to the instance's launch count of that kernel.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("fused_measure.cu", "fused_apply.cu")
+HEADERS = ("fused_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SUPPORTED_M = (64, 128)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (source,) + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    in parallel. Returns ``{source: ptxas report}`` for what it compiled
+    and ``{"seconds": wall time}``; raises with the compiler's output if any
+    compile fails."""
+    t0 = time.perf_counter()
+    todo = [src for src in SOURCES if not library_path(src).exists()]
+    nvcc = _nvcc() if todo else None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in todo:
+        out = library_path(src)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, out, tmp, proc))
+    report, failed = {}, []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        report[src] = log
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _functions():
+    """The C entry points (measure_ref, measure, apply), one kernel each."""
+    build()
+    lib = ctypes.CDLL(str(library_path("fused_measure.cu")))
+    ref = lib.fused_measure_ref
+    ref.argtypes = [_P] * 5 + [_I] * 2 + [_P]
+    ref.restype = _I
+    measure = lib.fused_measure_i8_spec
+    measure.argtypes = [_P] * 12 + [_I] * 3 + [_P]
+    measure.restype = _I
+    apply = ctypes.CDLL(str(library_path("fused_apply.cu"))).fused_apply_spec_i8
+    apply.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    apply.restype = _I
+    return ref, measure, apply
+
+
+def _check(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _expect(x: torch.Tensor, name, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
+        raise ValueError(f"{name}: need {dtype} {tuple(shape)} on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(k):
+    """Interleaved (re, im) float32 [m, m, 2] tables on the instance's
+    device: F and conj(F)/m as their bf16-rounded values, and the twiddle."""
+    f = k.fft
+    pair = lambda re, im: torch.stack([re, im], dim=-1).contiguous()
+    return pair(f.fre, f.fim), pair(f.fire, f.fiim), pair(f.tre, f.tim)
+
+
+def _setup(k, x: torch.Tensor):
+    if k.m not in SUPPORTED_M:
+        raise ValueError(f"the CUDA fused kernels take m in {SUPPORTED_M}, got m = {k.m}")
+    if x.device != k.device:
+        raise ValueError(f"inputs on {x.device}, kernels built for {k.device}")
+    return _functions(), _tables(k), torch.cuda.current_stream(x.device).cuda_stream
+
+
+def measure_ref(k, ref_raw: torch.Tensor):
+    """Launch ``fused_measure_ref`` (see ``FusedPipelineKernels.measure_ref``)."""
+    (ref, _, _), (F, _, Tw), stream = _setup(k, ref_raw)
+    m = k.m
+    T = ref_raw.shape[0]
+    if T < 2:
+        raise ValueError(f"measure_ref needs at least 2 blocks, got {T}")
+    dev = ref_raw.device
+    _expect(ref_raw, "ref_raw", torch.int8, (T, m // 2, 2 * m), dev)
+    ref_raw = ref_raw.contiguous()
+    R = torch.empty((T - 1, m, m, 2), dtype=torch.float32, device=dev)
+    eref = torch.empty((T - 1,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = ref(ref_raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(),
+                 eref.data_ptr(), T - 1, m, stream)
+    _check("fused_measure_ref", rc)
+    k.measure_ref_launches += 1
+    return R, eref
+
+
+def measure_spec(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
+    """Launch ``fused_measure_i8_spec`` (see ``FusedPipelineKernels.measure_spec``)."""
+    (_, measure, _), (F, _, Tw), stream = _setup(k, raw)
+    m = k.m
+    T, N = raw.shape[:2]
+    if T < 2:
+        raise ValueError(f"measure_spec needs at least 2 blocks, got {T}")
+    dev = raw.device
+    T1 = T - 1
+    _expect(raw, "raw", torch.int8, (T, N, m // 2, 2 * m), dev)
+    _expect(R, "R", torch.float32, (T1, m, m, 2), dev)
+    _expect(eref, "eref", torch.float32, (T1,), dev)
+    raw, R, eref = raw.contiguous(), R.contiguous(), eref.contiguous()
+    scal = [torch.empty((T1, N), dtype=torch.float32, device=dev) for _ in range(5)]
+    dre = torch.empty((T1, N, m, m), dtype=torch.bfloat16, device=dev)
+    dim = torch.empty_like(dre)
+    with torch.cuda.device(dev):
+        rc = measure(raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(),
+                     eref.data_ptr(), *(s.data_ptr() for s in scal),
+                     dre.data_ptr(), dim.data_ptr(), T1, N, m, stream)
+    _check("fused_measure_i8_spec", rc)
+    k.measure_launches += 1
+    return (*scal, dre, dim)
+
+
+def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
+    """Launch ``fused_apply_spec_i8`` (see ``FusedPipelineKernels.apply_spec_i8``)."""
+    (_, _, apply), (_, Fi, Tw), stream = _setup(k, dre)
+    m = k.m
+    T1, N = dre.shape[:2]
+    dev = dre.device
+    for name, x in (("dre", dre), ("dim", dim)):
+        _expect(x, name, torch.bfloat16, (T1, N, m, m), dev)
+    for name, x in (("advance", advance), ("phase_re", phase_re), ("phase_im", phase_im)):
+        _expect(x, name, torch.float32, (T1, N), dev)
+    args = [x.contiguous() for x in (dre, dim, advance, phase_re, phase_im)]
+    out = torch.empty((T1, N, m // 2, 2 * m), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        rc = apply(*(x.data_ptr() for x in args), Fi.data_ptr(), Tw.data_ptr(),
+                   out.data_ptr(), T1, N, m, stream)
+    _check("fused_apply_spec_i8", rc)
+    k.apply_launches += 1
+    return out
