@@ -2,14 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the fused measure/apply CUDA kernels from ``coherent_rtlsdr_tpu_torch/
-csrc`` and drives the port's main path at the production width (N = 21
-channels, L = 8192, W = 2L = 128^2), phase by phase:
+Builds the CUDA kernels from ``coherent_rtlsdr_tpu_torch/csrc`` and drives
+the port's paths at the production width (N = 21 channels, L = 8192,
+W = 2L = 128^2), phase by phase. The fused i8 path (fft_impl="fused"):
 
   1. device, versions, kernel build;
-  2. each kernel (the reference-spectrum and channel halves of measure, and
-     apply) against its plain PyTorch version, at m = 128 (N = 21, T = 5)
-     and m = 64, on random and on synthetic correlated bytes;
+  2. each i8 kernel (the reference-spectrum and channel halves of measure,
+     and apply) against its plain PyTorch version, at m = 128 (N = 21,
+     T = 5) and m = 64, on random and on synthetic correlated bytes;
   3. the offline engine ``align_offline`` at T = 256 blocks: samples/s, and
      the launch counts showing it ran through the kernels;
   4. quality against synthetic truth (residual phase and lag);
@@ -20,11 +20,30 @@ channels, L = 8192, W = 2L = 128^2), phase by phase:
   7. one streaming call and one offline run under torch.profiler: device
      busy time and idle share.
 
+The generic path (fft_impl="pallas", lag_method="phase_slope"; the
+four-step FFT kernel) and ``FusedSpectral`` (the float measure/apply
+kernels):
+
+  8. the four-step kernel forward and inverse at m = 128 and 64 against its
+     plain version and torch.fft, and the float measure/apply kernels
+     against theirs at N = 21, on random and correlated planes;
+  9. the generic offline engine at T = 256: samples/s over >= 5 timed runs,
+     peak memory, four-step launch counts; once with fft_impl="xla"
+     (cuFFT) beside it;
+ 10. generic quality against synthetic truth;
+ 11. the generic streaming runner at K = 32 for 4 calls;
+ 12. ``FusedSpectral`` prepare -> measure -> correct at T = 256, by its
+     launch counts;
+ 13. the four-step kernel (B = 5,355 transforms) against its plain version
+     and ``torch.fft``, and the float measure/apply kernels against theirs,
+     at the offline shapes, timed.
+
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the card's name and power limit and a
-JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Needs a CUDA device and the repository's
-package next to this file.
+JSON summary of the kernels (times, launches, errors, and the bound: the
+larger of bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s); the
+last line is ``{"ok": true, "device": {...}}``. Needs a CUDA device and the
+repository's package next to this file.
 """
 
 import json
@@ -46,8 +65,25 @@ MIN_CORR_MAG = 0.1       # PipelineConfig.min_corr_mag: measurements used at or 
 PHASE_ERR_DEG = 0.1
 LAG_ERR_SAMPLES = 5e-3
 
+# Generic path (phases 8-13): the four-step FFT against torch.fft
+# (tests/test_kernels.py:81), kernel against plain version, and the float
+# apply's output by the wire bars in float units.
+FFT_PLAIN_REL = 1e-3     # max |kernel - plain| / max |plain|
+FFT_LIB_REL = 3e-2       # max |kernel - torch.fft| / max |torch.fft| (bf16 products)
+Y_MAX = 2.0 / 127.0      # float apply: max |diff|
+Y_GT1_SHARE = 1e-3       # float apply: share of samples more than 1/127 apart
+# Generic quality bars: the JAX package's own bf16 tests
+# (tests/test_kernels.py:177-188).
+GEN_LAG_MAX = 0.1        # max |delay - truth|, samples
+GEN_PHASE_MAX_DEG = 3.0  # max |residual phase|, degrees
+
 N_CH, L = 21, 8192
 T_OFFLINE, K_STREAM, CALLS_STREAM = 256, 32, 4
+GENERIC = dict(fft_impl="pallas", lag_method="phase_slope")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def emit(obj):
@@ -205,12 +241,38 @@ def kernel_inputs(k, fn):
     return seen
 
 
+def launched_only(counts, want, where):
+    """The counts are ``want`` (launches) and zero everywhere else: no plain
+    version ran."""
+    full = dict.fromkeys(counts, 0) | want
+    if counts != full:
+        raise AssertionError(f"{where} did not run through the kernels: {counts}, want {full}")
+
+
 def launched_only_kernels(counts, n, where):
-    """Every kernel launched n times, no plain version run."""
-    want = dict(measure_ref_launches=n, measure_launches=n, apply_launches=n,
-                measure_ref_plain_runs=0, measure_plain_runs=0, apply_plain_runs=0)
-    if counts != want:
-        raise AssertionError(f"{where} did not run through the kernels: {counts}")
+    """Every i8 kernel launched n times, nothing else run."""
+    launched_only(counts, dict(measure_ref_launches=n, measure_spec_launches=n,
+                               apply_spec_i8_launches=n), where)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the bf16 operations over the tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_interleaved(fns, bases, variants):
+    """Median ms of each ``fns[base + variant]`` over four runs in turns
+    (first, second, second, first variant), after a warm-up of each."""
+    times = {name: [] for name in fns}
+    for name in fns:
+        cuda_ms(fns[name])
+    for order in (variants, variants[::-1], variants[::-1], variants):
+        for base in bases:
+            for v in order:
+                times[base + v].append(cuda_ms(fns[base + v]))
+    return {name: statistics.median(v) for name, v in times.items()}, times
 
 
 def synth_raw(n_blocks, block_len, n_ch, seed, dev):
@@ -261,6 +323,114 @@ def offline_run(cfg, sig_u8, ref_u8):
     return align_offline(cfg, sig_u8, ref_u8, smoothing="global")
 
 
+def planes_from_i8(raw, ref_raw, fft):
+    """Float-path inputs from signed blocks: bf16 block planes pre/pim
+    ``[T, N, m/2, m]`` and the reference window spectra rre/rim ``[T-1, m,
+    m]`` (through ``fft``, an FFT4StepKernel)."""
+    from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64
+
+    T, N, m2, m = raw.shape[0], raw.shape[1], raw.shape[2], raw.shape[3] // 2
+    sig = i8_iq_to_c64(raw.reshape(T, N, m2 * m, 2)).reshape(T, N, m2, m)
+    ref = i8_iq_to_c64(ref_raw.reshape(T, m2 * m, 2))
+    R = fft.fft(torch.cat([ref[:-1], ref[1:]], dim=-1))
+    bf = lambda x: x.to(torch.bfloat16)
+    return bf(sig.real), bf(sig.imag), bf(R.real), bf(R.imag)
+
+
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def hold_fourstep(k, x, where):
+    """The four-step kernel forward and inverse against its plain version
+    and torch.fft on ``x [B, W]`` complex64."""
+    m = k.m
+    X = torch.fft.fft(x).reshape(-1, m, m).transpose(-1, -2)   # natural -> (k2, k1)
+    fwd, fwd_plain = k.fft(x), k.fft_plain(x)
+    inv, inv_plain = k.ifft(X), k.ifft_plain(X)
+    torch.cuda.synchronize()
+    errs = dict(fwd_rel_plain=rel_err(fwd, fwd_plain), fwd_rel_torch_fft=rel_err(fwd, X),
+                inv_rel_plain=rel_err(inv, inv_plain), inv_rel_torch_fft=rel_err(inv, x),
+                fwd_max_abs_err=(fwd - fwd_plain).abs().max().item(),
+                inv_max_abs_err=(inv - inv_plain).abs().max().item())
+    if not (errs["fwd_rel_plain"] <= FFT_PLAIN_REL and errs["inv_rel_plain"] <= FFT_PLAIN_REL
+            and errs["fwd_rel_torch_fft"] < FFT_LIB_REL
+            and errs["inv_rel_torch_fft"] < FFT_LIB_REL):
+        raise AssertionError(f"{where}: four-step kernel off: {errs}")
+    return errs
+
+
+def hold_float_measure(k, planes, where):
+    """The float measure kernel against its plain version: lag, |z|, sum
+    |D|^2 and sum |G|^2 by the i8 measure bars where the window is used."""
+    got = k.measure(*planes)
+    want = k.measure_plain(*planes)
+    torch.cuda.synchronize()
+    for x in got:
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{where}: non-finite float measure output")
+    rre, rim = planes[2].float(), planes[3].float()
+    eref = (rre * rre + rim * rim).sum((-2, -1))[:, None]
+    mag = lambda out: out[1] / torch.sqrt(out[2] * eref).clamp(min=1e-30)
+    used = mag(want) >= MIN_CORR_MAG
+    if not torch.equal(mag(got) >= MIN_CORR_MAG, used):
+        raise AssertionError(f"{where}: float measure gates windows differently")
+    errs = dict(windows_used=int(used.sum().item()), windows=used.numel())
+    errs["lag_max_abs_err"] = (got[0] - want[0])[used].abs().max().item() if used.any() else 0.0
+    if not errs["lag_max_abs_err"] <= LAG_ATOL:
+        raise AssertionError(f"{where}: float lag off by {errs['lag_max_abs_err']}")
+    for name, g, w in zip(("|z|", "sum|D|^2", "sum|G|^2"), got[1:], want[1:]):
+        errs[name] = ((g - w).abs() / w.abs().clamp(min=1e-30))[used].max().item() \
+            if used.any() else 0.0
+        if not errs[name] <= SCALAR_RTOL:
+            raise AssertionError(f"{where}: float {name} rel err {errs[name]}")
+    return errs
+
+
+def hold_float_apply(k, planes, adv, where):
+    """The float apply kernel against its plain version by the float wire
+    bars."""
+    got = k.apply(planes[0], planes[1], adv)
+    want = k.apply_plain(planes[0], planes[1], adv)
+    torch.cuda.synchronize()
+    d = torch.stack([(got[0] - want[0]).abs(), (got[1] - want[1]).abs()])
+    mx, share = d.max().item(), (d > 1.0 / 127.0).float().mean().item()
+    if not (mx <= Y_MAX and share < Y_GT1_SHARE):
+        raise AssertionError(f"{where}: float apply max {mx}, share > 1/127 {share}")
+    return dict(y_max_abs_err=mx, y_share_gt_1_127=share)
+
+
+def phase_generic_kernels(dev):
+    """Phase 8: the generic kernels against their plain versions."""
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel
+    from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels
+
+    out = []
+    for m in (128, 64):
+        fk = FFT4StepKernel(m * m, dev)
+        k = FusedPipelineKernels(m * m, dev)
+        g = torch.Generator(device=dev).manual_seed(m + 1)
+        x = torch.complex(torch.randn((2 * N_CH, m * m), generator=g, device=dev),
+                          torch.randn((2 * N_CH, m * m), generator=g, device=dev))
+        out.append(dict(kernel="fourstep", m=m, B=2 * N_CH, **hold_fourstep(fk, x, f"m={m}")))
+        inputs = {
+            "random": (
+                torch.randint(-128, 128, (5, N_CH, m // 2, 2 * m), generator=g, device=dev,
+                              dtype=torch.int8),
+                torch.randint(-128, 128, (5, m // 2, 2 * m), generator=g, device=dev,
+                              dtype=torch.int8)),
+            "correlated": synth_raw(5, m * m // 2, N_CH, seed=m, dev=dev)[:2],
+        }
+        for kind, (raw, ref_raw) in inputs.items():
+            where = f"float m={m} {kind}"
+            planes = planes_from_i8(raw, ref_raw, fk)
+            errs = hold_float_measure(k, planes, where)
+            adv = (torch.rand((4, N_CH), generator=g, device=dev) - 0.5) * 80.0
+            errs.update(hold_float_apply(k, planes, adv, where))
+            out.append(dict(kernel="measure/apply", m=m, N=N_CH, T=5, inputs=kind, **errs))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -297,6 +467,8 @@ def main():
     cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
                          lag_method="phase_zoom")
     k = get_fused_kernels(2 * L, dev)
+
+    col = {name: i for i, name in enumerate(TELEMETRY_COLS)}
 
     # 3. Offline engine at full width.
     raw, ref_raw, cap = synth_raw(T_OFFLINE, L, N_CH, seed=3, dev=dev)
@@ -373,7 +545,6 @@ def main():
     errs_step.update(hold_apply(k, seen["apply_spec_i8"], "streaming step"))
     errs_step.update(measure_shape=list(seen["measure_spec"][0].shape),
                      apply_shape=list(seen["apply_spec_i8"][0].shape))
-    col = {name: i for i, name in enumerate(TELEMETRY_COLS)}
     synced = telem[-1, :, col["synced"]]
     delay_final = pstate[0][:, 0].cpu().numpy()
     res_truth = delay_final - s_cap.truth.delays
@@ -426,28 +597,216 @@ def main():
                   lambda: run(pstate, sigs[blk], refs[blk], True, seqs[blk])),
               offline=device_profile(lambda: offline_run(cfg, sig_u8, ref_u8))))
 
-    # launches: the main path's runs (phases 3 and 5); max_abs_err: the
-    # larger of the streaming-step and offline-shape comparisons (R for the
-    # reference kernel, lag in samples for measure, wire LSB for apply).
+    # --- The generic path and FusedSpectral. ---------------------------
+    from coherent_rtlsdr_tpu_torch.kernels.backend import FusedSpectral
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import get_fourstep_kernel
+    from coherent_rtlsdr_tpu_torch.ops.convert import u8_to_c64
+
+    # 8. Generic kernels against plain versions.
+    emit(dict(phase="generic_kernel_vs_plain", card=smi, results=phase_generic_kernels(dev)))
+
+    gcfg = PipelineConfig(n_channels=N_CH, block_len=L, **GENERIC)
+    fk = get_fourstep_kernel(2 * L, dev)
+
+    # 9. Generic offline engine at full width, fft_impl="pallas".
+    offline_run(gcfg, sig_u8, ref_u8)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gres = None
+
+    def drive_generic():
+        nonlocal gres
+        gres = offline_run(gcfg, sig_u8, ref_u8)
+
+    n_runs = 7
+    fk.reset_counts()
+    k.reset_counts()
+    g_runs = [cuda_ms(drive_generic) for _ in range(n_runs)]
+    counts_goff = fk.counts()
+    launched_only(counts_goff, dict(fft_launches=2 * n_runs, ifft_launches=2 * n_runs),
+                  "generic offline")
+    launched_only(k.counts(), {}, "generic offline (fused kernels)")
+    peak_g = torch.cuda.max_memory_allocated() / 1e9
+    ms_g = statistics.median(g_runs)
+    g_err = float(abs(gres.delay[0].cpu().numpy() - cap.truth.delays).max())
+    if not (tuple(gres.aligned.shape) == (T_OFFLINE - 1, N_CH, L)
+            and torch.isfinite(gres.lag).all() and g_err < GEN_LAG_MAX
+            and gres.mag.min().item() > 0.5):
+        raise AssertionError(f"generic offline output wrong: max |delay - truth| {g_err}, "
+                             f"min mag {gres.mag.min().item()}")
+    del gres
+    xcfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="xla", lag_method="phase_slope")
+    offline_run(xcfg, sig_u8, ref_u8)   # warm-up
+    x_runs = [cuda_ms(lambda: offline_run(xcfg, sig_u8, ref_u8)) for _ in range(3)]
+    ms_x = statistics.median(x_runs)
+    emit(dict(phase="generic_offline", card=smi, N=N_CH, L=L, T=T_OFFLINE, **GENERIC,
+              smoothing="global", ms_median=ms_g, ms_runs=g_runs,
+              samples_per_s=samples / ms_g * 1e3, peak_mem_gb=peak_g,
+              max_abs_delay_minus_truth=g_err, launches=counts_goff,
+              xla_cufft=dict(ms_median=ms_x, ms_runs=x_runs, samples_per_s=samples / ms_x * 1e3),
+              profile=device_profile(lambda: offline_run(gcfg, sig_u8, ref_u8))))
+
+    # 10. Generic quality against synthetic truth (the phase 4 capture).
+    gq = offline_run(gcfg, q_cap.sig_u8.reshape(16, N_CH, 2 * L),
+                     q_cap.ref_u8.reshape(16, 2 * L))
+    z = (gq.aligned * gq.ref.conj()[:, None, :]).sum(-1)
+    g_deg = torch.rad2deg(torch.angle(z))[2:].double()
+    g_lag = gq.delay[2:].double().cpu() - torch.from_numpy(q_cap.truth.delays).double()[None]
+    gq_out = dict(phase_err_deg_rms=g_deg.pow(2).mean().sqrt().item(),
+                  residual_lag_rms_samples=g_lag.pow(2).mean().sqrt().item(),
+                  phase_err_deg_max=g_deg.abs().max().item(),
+                  lag_err_max_samples=g_lag.abs().max().item())
+    emit(dict(phase="generic_quality", card=smi, N=N_CH, L=L, T=16, **GENERIC, **gq_out,
+              bars=[GEN_PHASE_MAX_DEG, GEN_LAG_MAX]))
+    if not (gq_out["phase_err_deg_max"] <= GEN_PHASE_MAX_DEG
+            and gq_out["lag_err_max_samples"] <= GEN_LAG_MAX):
+        raise AssertionError(f"generic quality: {gq_out}")
+
+    # 11. Generic streaming: the packed scan runner on the phase 5 stream.
+    grun = make_packed_scan_runner(gcfg)
+    gp = pack_state(init_state(gcfg, dev))
+    g_call_s = []
+    fk.reset_counts()
+    k.reset_counts()
+    for c in range(CALLS_STREAM):
+        blk = slice(c * K_STREAM, (c + 1) * K_STREAM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp, (gw, gwr), gtel = grun(gp, sigs[blk], refs[blk], True, seqs[blk])
+        torch.cuda.synchronize()
+        g_call_s.append(time.perf_counter() - t0)
+    counts_gstream = fk.counts()
+    launched_only(counts_gstream, dict(fft_launches=2 * n_stream, ifft_launches=2 * n_stream),
+                  "generic streaming")
+    launched_only(k.counts(), {}, "generic streaming (fused kernels)")
+    g_synced = gtel[-1, :, col["synced"]]
+    g_delay = gp[0][:, 0].cpu().numpy()
+    blk = slice(n_stream, n_synth)
+    emit(dict(phase="generic_streaming", card=smi, N=N_CH, L=L, K=K_STREAM,
+              calls=CALLS_STREAM, **GENERIC, call_s=g_call_s,
+              samples_per_s_after_first_call=(CALLS_STREAM - 1) * K_STREAM * N_CH * L
+              / sum(g_call_s[1:]),
+              synced=int(g_synced.sum().item()),
+              residual_lag_rms_vs_truth=float(((g_delay - s_cap.truth.delays) ** 2).mean() ** 0.5),
+              launches=counts_gstream,
+              profile=device_profile(lambda: grun(gp, sigs[blk], refs[blk], True, seqs[blk]))))
+    if not (g_synced.all() and tuple(gw.shape) == (K_STREAM, N_CH, L, 2)
+            and tuple(gwr.shape) == (K_STREAM, L, 2) and torch.isfinite(gtel).all()):
+        raise AssertionError("generic streaming: not every channel synced or bad output")
+
+    # 12. FusedSpectral at full width: prepare -> measure -> correct.
+    sig_c = u8_to_c64(sig_u8.reshape(T_OFFLINE, N_CH, L, 2))
+    ref_c = u8_to_c64(ref_u8.reshape(T_OFFLINE, L, 2))
+    fsp = FusedSpectral(2 * L, dev)
+    fk.reset_counts()
+    k.reset_counts()
+    fctx = fsp.prepare(sig_c, ref_c)
+    fest = fsp.measure(fctx, "phase_zoom")
+    fy = fsp.correct(fctx, fest.lag)
+    torch.cuda.synchronize()
+    counts_fsp = {**fk.counts(), **k.counts()}
+    launched_only(fk.counts(), dict(fft_launches=1), "FusedSpectral (four-step)")
+    launched_only(k.counts(), dict(measure_launches=1, apply_launches=1),
+                  "FusedSpectral (float measure/apply)")
+    f_err = float(abs(fest.lag.median(dim=0).values.cpu().numpy() - cap.truth.delays).max())
+    emit(dict(phase="fused_spectral", card=smi, N=N_CH, L=L, T=T_OFFLINE,
+              launches={name: n for name, n in counts_fsp.items() if n},
+              max_abs_median_lag_minus_truth=f_err, mag_min=fest.mag.min().item()))
+    if not (tuple(fy.shape) == (T_OFFLINE - 1, N_CH, L)
+            and torch.isfinite(torch.view_as_real(fy)).all()
+            and f_err < GEN_LAG_MAX and fest.mag.min().item() > 0.5):
+        raise AssertionError(f"FusedSpectral output wrong: lag {f_err}, "
+                             f"min mag {fest.mag.min().item()}")
+    del fy
+
+    # 13. Generic kernels against plain versions (and torch.fft) at the
+    # offline shapes, timed: the four-step over the B = 5,355 channel
+    # windows, the float measure/apply at T = 256.
+    w_sig = torch.cat([sig_c[:-1], sig_c[1:]], dim=-1).reshape(-1, 2 * L)
+    B = w_sig.shape[0]
+    errs13 = hold_fourstep(fk, w_sig, "offline shapes")
+    errs13.update(hold_float_measure(k, fctx, "offline shapes"))
+    errs13.update(hold_float_apply(k, fctx, fest.lag, "offline shapes"))
+    Xw = fk.fft(w_sig)
+    adv = fest.lag.contiguous()
+    fns = {
+        "fft": lambda: fk.fft(w_sig), "fft_plain": lambda: fk.fft_plain(w_sig),
+        "fft_lib": lambda: torch.fft.fft(w_sig),
+        "ifft": lambda: fk.ifft(Xw), "ifft_plain": lambda: fk.ifft_plain(Xw),
+        "ifft_lib": lambda: torch.fft.ifft(w_sig),
+        "measure": lambda: k.measure(*fctx), "measure_plain": lambda: k.measure_plain(*fctx),
+        "apply": lambda: k.apply(fctx.pre, fctx.pim, adv),
+        "apply_plain": lambda: k.apply_plain(fctx.pre, fctx.pim, adv),
+    }
+    ms13, runs13 = timed_interleaved({n: f for n, f in fns.items() if n.startswith(("fft", "ifft"))},
+                                     ("fft", "ifft"), ("_plain", "", "_lib"))
+    ms13b, runs13b = timed_interleaved(
+        {n: f for n, f in fns.items() if not n.startswith(("fft", "ifft"))},
+        ("measure", "apply"), ("_plain", ""))
+    ms13.update(ms13b)
+    runs13.update(runs13b)
+    emit(dict(phase="generic_kernel_times", card=smi, N=N_CH, L=L, T=T_OFFLINE, B=B, ms=ms13,
+              runs=runs13, kernel_vs_plain=errs13))
+
+    # The kernels line. launches: the main path's runs (phases 3 and 5 for
+    # the i8 kernels; 9, 11 and 12 for the four-step; 12 for the float
+    # kernels). max_abs_err: the largest kernel-vs-plain difference seen
+    # (R for the reference kernel, lag in samples for the measure kernels,
+    # wire LSB for the i8 apply, |diff| of the spectrum for the four-step
+    # and of the samples for the float apply). ms, plain_ms, library_ms:
+    # medians at the offline shapes (phases 6 and 13). bound_ms: the larger
+    # of the bytes each function must move over 3.35 TB/s and its matrix
+    # products (8 m^3 operations a complex m x m x m product) over the bf16
+    # peak, at those shapes.
     launches = {c: counts_offline[c] + counts_stream[c] for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
+    T1, W = T_OFFLINE - 1, 2 * L
+    m3 = round(W ** 0.5) ** 3
+    nwin = T1 * N_CH
+    bounds = {
+        "measure_ref": bound(T_OFFLINE * W + T1 * W * 8 + T1 * 4, T1 * 16 * m3),
+        "measure_spec": bound(T_OFFLINE * N_CH * W + T1 * W * 8 + T1 * 4 + 5 * nwin * 4
+                              + 2 * nwin * W * 2, nwin * 16 * m3),
+        "apply_spec_i8": bound(2 * nwin * W * 2 + 3 * nwin * 4 + nwin * W, nwin * 12 * m3),
+        "fourstep": bound(2 * B * W * 8, B * 16 * m3),
+        "measure": bound(2 * T_OFFLINE * N_CH * (W // 2) * 2 + 2 * T1 * W * 2 + 4 * nwin * 4,
+                         nwin * 16 * m3),
+        "apply": bound(2 * T_OFFLINE * N_CH * (W // 2) * 2 + nwin * 4 + 2 * nwin * (W // 2) * 4,
+                       nwin * 28 * m3),
+    }
+    tpu = "coherent_rtlsdr_tpu/kernels/"
+    src = "coherent_rtlsdr_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, key, n_launch, err, ms_k, ms_p, lib=None, **extra):
+        b_ms, b_by = bounds[key]
+        return dict(name=name, route="cuda", source=src + source, replaces=tpu + replaces,
+                    launches=n_launch, max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib, **extra)
+
+    fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
+                         + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
+                         + counts_fsp["fft_launches"])
     print(smi, flush=True)
     emit({"kernels": [
-        dict(name="fused_measure_ref", route="cuda",
-             source="coherent_rtlsdr_tpu_torch/csrc/fused_measure.cu",
-             replaces="coherent_rtlsdr_tpu/kernels/pallas_fused.py:356",
-             launches=launches["measure_ref_launches"], max_abs_err=worst("R_max_abs_err"),
-             ms=ms["measure_ref"], plain_ms=ms["measure_ref_plain"]),
-        dict(name="fused_measure_i8_spec", route="cuda",
-             source="coherent_rtlsdr_tpu_torch/csrc/fused_measure.cu",
-             replaces="coherent_rtlsdr_tpu/kernels/pallas_fused.py:338",
-             launches=launches["measure_launches"], max_abs_err=worst("lag_max_abs_err"),
-             ms=ms["measure"], plain_ms=ms["measure_plain"]),
-        dict(name="fused_apply_spec_i8", route="cuda",
-             source="coherent_rtlsdr_tpu_torch/csrc/fused_apply.cu",
-             replaces="coherent_rtlsdr_tpu/kernels/pallas_fused.py:392",
-             launches=launches["apply_launches"], max_abs_err=worst("wire_max_lsb"),
-             ms=ms["apply"], plain_ms=ms["apply_plain"]),
+        entry("fused_measure_ref", "fused_measure.cu", "pallas_fused.py:356", "measure_ref",
+              launches["measure_ref_launches"], worst("R_max_abs_err"), ms["measure_ref"],
+              ms["measure_ref_plain"]),
+        entry("fused_measure_i8_spec", "fused_measure.cu", "pallas_fused.py:338",
+              "measure_spec", launches["measure_spec_launches"], worst("lag_max_abs_err"),
+              ms["measure"], ms["measure_plain"]),
+        entry("fused_apply_spec_i8", "fused_apply.cu", "pallas_fused.py:392", "apply_spec_i8",
+              launches["apply_spec_i8_launches"], worst("wire_max_lsb"), ms["apply"],
+              ms["apply_plain"]),
+        entry("fourstep_fft", "fourstep.cu", "pallas_fft.py:32", "fourstep", fourstep_launches,
+              max(errs13["fwd_max_abs_err"], errs13["inv_max_abs_err"]), ms13["fft"],
+              ms13["fft_plain"], ms13["fft_lib"], ms_inverse=ms13["ifft"],
+              plain_ms_inverse=ms13["ifft_plain"], library_ms_inverse=ms13["ifft_lib"]),
+        entry("fused_measure_planes", "fused_measure.cu", "pallas_fused.py:185", "measure",
+              counts_fsp["measure_launches"], errs13["lag_max_abs_err"], ms13["measure"],
+              ms13["measure_plain"]),
+        entry("fused_apply_planes", "fused_apply.cu", "pallas_fused.py:220", "apply",
+              counts_fsp["apply_launches"], errs13["y_max_abs_err"], ms13["apply"],
+              ms13["apply_plain"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

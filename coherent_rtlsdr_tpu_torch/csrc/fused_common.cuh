@@ -1,9 +1,10 @@
-// Shared device helpers of the fused measure/apply kernels
-// (fused_measure.cu, fused_apply.cu).
+// Shared device helpers of the hand-written kernels (fused_measure.cu,
+// fused_apply.cu, fourstep.cu).
 //
 // Layouts (W = m*m, m in {64, 128}):
 //   * a stream block is int8 [m/2, 2m]: row r holds samples [r*m, (r+1)*m)
-//     as I0 Q0 I1 Q1 ...; the window of output slot t is blocks (t, t+1);
+//     as I0 Q0 I1 Q1 ...; or, on the float path, two bf16 planes (re, im)
+//     [m/2, m]; the window of output slot t is blocks (t, t+1);
 //   * spectra are in the permuted (k2, k1) layout of kernels/fft4step.py:
 //     natural bin k = k2 + m*k1 sits at row k2, column k1;
 //   * the host passes the tables as interleaved (re, im) float32 [m, m]:
@@ -24,6 +25,13 @@ namespace fused {
 
 constexpr int kThreads = 256;                    // a 16 x 16 thread grid
 constexpr float kTwoPi = 6.283185307179586f;     // float32(2*pi)
+
+// Lets `kernel` be launched with `bytes` of dynamic shared memory (above
+// 48 kB only after this call).
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -117,5 +125,77 @@ struct SmemBf16Matrix {
     p[r * kStride + c] = __floats2bfloat162_rn(re, im);
   }
 };
+
+// Forward four-step FFT of one window: load(A) fills A (float2 [m*m],
+// row-major, shared) with bf16-valued (re, im); then B = F A,
+// C = bf16(B * T) into C, D = C F. Hands each D element to
+// d_epi(r, c, re, im); every thread has passed a __syncthreads on return.
+template <int M, class Load, class DEpi>
+__device__ __forceinline__ void forward_fft(Load load, const float2* __restrict__ F,
+                                            const float2* __restrict__ Tw, float2* A,
+                                            SmemBf16Matrix<M> C, DEpi d_epi) {
+  load(A);
+  __syncthreads();
+
+  // B[k2, n1] = sum_n2 F[k2, n2] A[n2, n1]; F is symmetric, so read row n2.
+  cmatmul<M / 16, M / 16, M>(
+      [&](int r, int k) { return F[k * M + r]; },
+      [&](int k, int c) { return A[k * M + c]; },
+      [&](int r, int c, float bre, float bim) {
+        const float2 t = Tw[r * M + c];
+        C.set(r, c, bre * t.x - bim * t.y, bre * t.y + bim * t.x);
+      });
+  __syncthreads();
+
+  // D[k2, k1] = sum_n1 C[k2, n1] F[n1, k1].
+  cmatmul<M / 16, M / 16, M>(
+      [&](int r, int k) { return C.get(r, k); },
+      [&](int k, int c) { return F[k * M + c]; },
+      d_epi);
+  __syncthreads();
+}
+
+// Window loader of the float path: fills A from two half-window bf16 plane
+// pairs, rows 0..m/2-1 from (re, im) and rows m/2..m-1 from (re + next,
+// im + next), the same channel's next block. Reads two bf16 a thread per
+// plane (the planes are 4-byte aligned: the host checks the base).
+template <int M>
+__device__ __forceinline__ void load_planes(const __nv_bfloat16* __restrict__ re,
+                                            const __nv_bfloat16* __restrict__ im, size_t next,
+                                            float2* A) {
+  constexpr int kHalf = M * M / 2;  // elements of a half-window
+  for (int i = threadIdx.x; i < M * M / 2; i += kThreads) {
+    const int e = 2 * i;  // element r*M + c of the window
+    const int half = e / kHalf;
+    const size_t off = half * next + (e - half * kHalf);
+    const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(re + off));
+    const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(im + off));
+    A[e] = make_float2(r.x, q.x);
+    A[e + 1] = make_float2(r.y, q.y);
+  }
+}
+
+// Inverse four-step of a permuted spectrum G (bf16, shared): C2 = G Fi,
+// B = bf16(C2 conj(T)) into B, then rows r0..r0+ROWS-1 of A = Fi B with
+// r0 = (M - ROWS)/2, each element handed to y_epi(r - r0, c, re, im).
+// Fi = conj(F)/m is symmetric, so its rows are read as columns.
+template <int M, int ROWS, class YEpi>
+__device__ __forceinline__ void inverse_fft(SmemBf16Matrix<M> G, SmemBf16Matrix<M> B,
+                                            const float2* __restrict__ Fi,
+                                            const float2* __restrict__ Tw, YEpi y_epi) {
+  cmatmul<M / 16, M / 16, M>(
+      [&](int r, int k) { return G.get(r, k); },
+      [&](int k, int c) { return Fi[k * M + c]; },
+      [&](int r, int c, float cre, float cim) {
+        const float2 tw = Tw[r * M + c];
+        B.set(r, c, cre * tw.x + cim * tw.y, cim * tw.x - cre * tw.y);
+      });
+  __syncthreads();
+  constexpr int r0 = (M - ROWS) / 2;
+  cmatmul<ROWS / 16, M / 16, M>(
+      [&](int r, int k) { return Fi[k * M + r0 + r]; },
+      [&](int k, int c) { return B.get(k, c); },
+      y_epi);
+}
 
 }  // namespace fused

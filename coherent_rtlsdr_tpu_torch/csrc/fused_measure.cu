@@ -1,24 +1,31 @@
-// Fused i8 measure kernel: dequant + de-interleave, forward four-step FFT of
-// each overlap-save window, cross-spectrum with the reference window, the
-// two-stage phase-zoom lag estimator, and the stored bf16 window spectrum.
+// Fused measure kernels: forward four-step FFT of each overlap-save window,
+// cross-spectrum with the reference window, and the two-stage phase-zoom
+// lag estimator.
 //
-// Replaces coherent_rtlsdr_tpu/kernels/pallas_fused.py:_measure_kernel_i8_spec
-// (FusedPipelineKernels.measure_i8_spec). Plain PyTorch versions:
-// coherent_rtlsdr_tpu_torch/kernels/fused.py:measure_ref_plain and
-// measure_spec_plain.
+// Replaces, in coherent_rtlsdr_tpu/kernels/pallas_fused.py:
+//   * _measure_kernel_i8_spec (FusedPipelineKernels.measure_i8_spec): int8
+//     blocks in, five scalars and the stored bf16 window spectrum out, as two
+//     kernels, fused_measure_ref then fused_measure_i8_spec;
+//   * _measure_kernel (FusedPipelineKernels.measure): bf16 block planes and
+//     bf16 reference spectra in, four scalars out, no spectrum stored
+//     (fused_measure_planes).
+// Plain PyTorch versions: coherent_rtlsdr_tpu_torch/kernels/fused.py
+// (measure_ref_plain, measure_spec_plain, measure_plain).
 //
 // Design. One CTA of 256 threads per (window t, channel n). On the TPU one
 // grid step carried the reference spectrum R across its channels; CUDA
-// blocks share nothing, so a first kernel, the same code in reference mode
-// (fused_measure_ref), writes R (float32) and its energy per window, and the
-// channel kernel (fused_measure_i8_spec) reads them. What bounds the kernel on
-// the H100: the four real m^3 products of each transform (2 x 16.8 MFLOP a
-// window at m = 128) run on the SIMT FMA units, so it is compute-bound at
-// ~2 FMA per shared-memory load; the bytes (32 kB in, 64 kB of D out, 128 kB
-// of R read from L2) are small beside that. Everything between the raw bytes
-// and the five scalars stays in shared memory, 197,152 bytes at m = 128:
-//   region A (m*m float2):  the dequantized window A, then G = D conj(R)
-//   region C (m*(m+1) bf16x2): C = bf16(B * T), then the stage-1 band sums
+// blocks share nothing, so on the i8 path a first kernel, the same transform
+// in reference mode (fused_measure_ref), writes R (float32) and its energy
+// per window, and the channel kernel reads them; on the float path R comes
+// from the caller as bf16 planes. What bounds the kernels on the H100: the
+// four real m^3 products of each transform (2 x 16.8 MFLOP a window at
+// m = 128) run on the SIMT FMA units, so they are compute-bound at ~2 FMA
+// per shared-memory load; the bytes (32 kB of window in, 64 kB of D out on
+// the i8 path, 128 kB of R read from L2) are small beside that. Everything
+// between the window and the scalars stays in shared memory, 197,152 bytes
+// at m = 128:
+//   region A (m*m float2):  the window A, then G = D conj(R)
+//   region C (m*(m+1) bf16x2): C = bf16(B * T), then the band sums
 // Tensor-core products (mma/wgmma) and pipelined loads are later work.
 
 #include "fused_common.cuh"
@@ -32,15 +39,10 @@ struct MeasureSmem {
   static constexpr size_t kBytes = kRegionA + kRegionC + sizeof(float) * (kThreads / 32);
 };
 
-// Window (t, n): rows 0..m/2-1 from block `top`, rows m/2..m-1 from the
-// next block (`top + next`). Fills A with bf16(float(i8) * (1/127)) as
-// float2 (re, im), then runs B = F A, C = bf16(B * T), D = C F.
-// Hands each D element to d_epi(r, c, re, im).
-template <int M, class DEpi>
-__device__ __forceinline__ void forward_fft(const int8_t* __restrict__ top, size_t next,
-                                            const float2* __restrict__ F,
-                                            const float2* __restrict__ Tw, float2* A,
-                                            SmemBf16Matrix<M> C, DEpi d_epi) {
+// Window loader of the i8 path: rows 0..m/2-1 from the int8 block `top`,
+// rows m/2..m-1 from `top + next`; A = bf16(float(i8) * (1/127)).
+template <int M>
+__device__ __forceinline__ void load_i8(const int8_t* __restrict__ top, size_t next, float2* A) {
   constexpr float kScale = static_cast<float>(1.0 / 127.0);
   // 4 bytes (2 samples) per step; each half-window is m*m contiguous bytes.
   constexpr int kWords = M * M / 4;
@@ -54,90 +56,20 @@ __device__ __forceinline__ void forward_fft(const int8_t* __restrict__ top, size
     A[r * M + c] = make_float2(bf16_round(b.x * kScale), bf16_round(b.y * kScale));
     A[r * M + c + 1] = make_float2(bf16_round(b.z * kScale), bf16_round(b.w * kScale));
   }
-  __syncthreads();
-
-  // B[k2, n1] = sum_n2 F[k2, n2] A[n2, n1]; F is symmetric, so read row n2.
-  cmatmul<M / 16, M / 16, M>(
-      [&](int r, int k) { return F[k * M + r]; },
-      [&](int k, int c) { return A[k * M + c]; },
-      [&](int r, int c, float bre, float bim) {
-        const float2 t = Tw[r * M + c];
-        C.set(r, c, bre * t.x - bim * t.y, bre * t.y + bim * t.x);
-      });
-  __syncthreads();
-
-  // D[k2, k1] = sum_n1 C[k2, n1] F[n1, k1].
-  cmatmul<M / 16, M / 16, M>(
-      [&](int r, int k) { return C.get(r, k); },
-      [&](int k, int c) { return F[k * M + c]; },
-      d_epi);
-  __syncthreads();
 }
 
-// Reference mode: one CTA per window t writes R[t] (float2 [m, m]) and
-// eref[t] = sum |R|^2.
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-measure_ref_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict__ F,
-                   const float2* __restrict__ Tw, float2* __restrict__ R,
-                   float* __restrict__ eref) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* A = reinterpret_cast<float2*>(smem);
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
-  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
+struct ZoomResult {
+  float lag, zre, zim;  // the same values in every thread
+};
 
-  const int t = blockIdx.x;
-  float2* Rt = R + static_cast<size_t>(t) * M * M;
-  float e = 0.f;
-  forward_fft<M>(ref_raw + static_cast<size_t>(t) * M * M, static_cast<size_t>(M) * M, F, Tw,
-                 A, C, [&](int r, int c, float dre, float dim) {
-                   Rt[r * M + c] = make_float2(dre, dim);
-                   e += dre * dre + dim * dim;
-                 });
-  e = block_sum(e, red);
-  if (threadIdx.x == 0) eref[t] = e;
-}
-
-// Channel mode: one CTA per (t, n) = (blockIdx.y, blockIdx.x).
+// The two-stage banded phase-slope estimator (_phase_zoom_core) on the
+// permuted cross-spectrum G (float2 [m*m], shared), which it deramps in
+// place. aux is region C (free again), red the block_sum scratch.
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
-               const float2* __restrict__ Tw, const float2* __restrict__ R,
-               const float* __restrict__ eref, float* __restrict__ lag_out,
-               float* __restrict__ zre_out, float* __restrict__ zim_out,
-               float* __restrict__ mag_out, float* __restrict__ papr_out,
-               __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
+__device__ __forceinline__ ZoomResult phase_zoom(float2* G, float2* aux, float* red) {
   constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* G = reinterpret_cast<float2*>(smem);  // region A: A, then G
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
-  float2* aux = reinterpret_cast<float2*>(smem + MeasureSmem<M>::kRegionA);  // region C, reused
-  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
-
-  const int n = blockIdx.x;
-  const int N = gridDim.x;
-  const int t = blockIdx.y;
-  const size_t win = static_cast<size_t>(t) * N + n;
-  const float2* Rt = R + static_cast<size_t>(t) * M * M;
-  __nv_bfloat16* Dre = dre_out + win * W;
-  __nv_bfloat16* Dim = dim_out + win * W;
-
-  // Window spectrum D: stored as bf16, and G = D conj(R) kept in float32.
-  float esig = 0.f, eg = 0.f;
-  forward_fft<M>(raw + win * W, static_cast<size_t>(N) * W, F, Tw, G, C,
-                 [&](int r, int c, float dre, float dim) {
-                   Dre[r * M + c] = __float2bfloat16_rn(dre);
-                   Dim[r * M + c] = __float2bfloat16_rn(dim);
-                   const float2 rr = Rt[r * M + c];
-                   const float gre = dre * rr.x + dim * rr.y;
-                   const float gim = dim * rr.x - dre * rr.y;
-                   G[r * M + c] = make_float2(gre, gim);
-                   esig += dre * dre + dim * dim;
-                   eg += gre * gre + gim * gim;
-                 });
-
   // --- stage 1: 8-bin bands are row groups of 8 within a column (band
-  // b = k1*(m/8) + j); g1[j][k1] in region C.
+  // b = k1*(m/8) + j); g1[j][k1] in aux.
   float2* g1 = aux;
   for (int i = threadIdx.x; i < (M / 8) * M; i += kThreads) {
     const int j = i / M;
@@ -244,17 +176,136 @@ measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
   }
   zre = block_sum(zre, red);
   zim = block_sum(zim, red);
+  return ZoomResult{int_lag + frac, zre, zim};
+}
+
+// Reference mode: one CTA per window t writes R[t] (float2 [m, m]) and
+// eref[t] = sum |R|^2.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+measure_ref_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict__ F,
+                   const float2* __restrict__ Tw, float2* __restrict__ R,
+                   float* __restrict__ eref) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* A = reinterpret_cast<float2*>(smem);
+  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
+  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
+
+  const int t = blockIdx.x;
+  float2* Rt = R + static_cast<size_t>(t) * M * M;
+  float e = 0.f;
+  forward_fft<M>(
+      [&](float2* a) {
+        load_i8<M>(ref_raw + static_cast<size_t>(t) * M * M, static_cast<size_t>(M) * M, a);
+      },
+      F, Tw, A, C, [&](int r, int c, float dre, float dim) {
+        Rt[r * M + c] = make_float2(dre, dim);
+        e += dre * dre + dim * dim;
+      });
+  e = block_sum(e, red);
+  if (threadIdx.x == 0) eref[t] = e;
+}
+
+// Channel mode of the i8 path: one CTA per (t, n) = (blockIdx.y, blockIdx.x).
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
+               const float2* __restrict__ Tw, const float2* __restrict__ R,
+               const float* __restrict__ eref, float* __restrict__ lag_out,
+               float* __restrict__ zre_out, float* __restrict__ zim_out,
+               float* __restrict__ mag_out, float* __restrict__ papr_out,
+               __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
+  constexpr int W = M * M;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* G = reinterpret_cast<float2*>(smem);  // region A: A, then G
+  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
+  float2* aux = reinterpret_cast<float2*>(smem + MeasureSmem<M>::kRegionA);  // region C, reused
+  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
+
+  const int n = blockIdx.x;
+  const int N = gridDim.x;
+  const int t = blockIdx.y;
+  const size_t win = static_cast<size_t>(t) * N + n;
+  const float2* Rt = R + static_cast<size_t>(t) * M * M;
+  __nv_bfloat16* Dre = dre_out + win * W;
+  __nv_bfloat16* Dim = dim_out + win * W;
+
+  // Window spectrum D: stored as bf16, and G = D conj(R) kept in float32.
+  float esig = 0.f, eg = 0.f;
+  forward_fft<M>([&](float2* a) { load_i8<M>(raw + win * W, static_cast<size_t>(N) * W, a); },
+                 F, Tw, G, C, [&](int r, int c, float dre, float dim) {
+                   Dre[r * M + c] = __float2bfloat16_rn(dre);
+                   Dim[r * M + c] = __float2bfloat16_rn(dim);
+                   const float2 rr = Rt[r * M + c];
+                   const float gre = dre * rr.x + dim * rr.y;
+                   const float gim = dim * rr.x - dre * rr.y;
+                   G[r * M + c] = make_float2(gre, gim);
+                   esig += dre * dre + dim * dim;
+                   eg += gre * gre + gim * gim;
+                 });
+
+  const ZoomResult z = phase_zoom<M>(G, aux, red);
   esig = block_sum(esig, red);
   eg = block_sum(eg, red);
 
   if (threadIdx.x == 0) {
-    const float zabs = sqrtf(zre * zre + zim * zim);
+    const float zabs = sqrtf(z.zre * z.zre + z.zim * z.zim);
     const float denom = sqrtf(esig * eref[t]);
-    lag_out[win] = int_lag + frac;
-    zre_out[win] = zre;
-    zim_out[win] = zim;
+    lag_out[win] = z.lag;
+    zre_out[win] = z.zre;
+    zim_out[win] = z.zim;
     mag_out[win] = zabs / fmaxf(denom, 1e-30f);
     papr_out[win] = zabs * zabs / fmaxf(eg, 1e-30f);
+  }
+}
+
+// The float path: block planes pre/pim bf16 [T, N, m/2, m] and reference
+// spectra rre/rim bf16 [T-1, m, m]; one CTA per (t, n). Writes the lag,
+// |z|, sum |D|^2 and sum |G|^2 of each window.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+measure_planes_kernel(const __nv_bfloat16* __restrict__ pre, const __nv_bfloat16* __restrict__ pim,
+                      const __nv_bfloat16* __restrict__ rre, const __nv_bfloat16* __restrict__ rim,
+                      const float2* __restrict__ F, const float2* __restrict__ Tw,
+                      float* __restrict__ lag_out, float* __restrict__ zabs_out,
+                      float* __restrict__ esig_out, float* __restrict__ eg_out) {
+  constexpr int W = M * M;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* G = reinterpret_cast<float2*>(smem);  // region A: A, then G
+  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
+  float2* aux = reinterpret_cast<float2*>(smem + MeasureSmem<M>::kRegionA);  // region C, reused
+  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
+
+  const int n = blockIdx.x;
+  const int N = gridDim.x;
+  const int t = blockIdx.y;
+  const size_t win = static_cast<size_t>(t) * N + n;
+  const size_t top = win * (W / 2);  // block t of channel n
+  const __nv_bfloat16* Rre = rre + static_cast<size_t>(t) * W;
+  const __nv_bfloat16* Rim = rim + static_cast<size_t>(t) * W;
+
+  float esig = 0.f, eg = 0.f;
+  forward_fft<M>(
+      [&](float2* a) { load_planes<M>(pre + top, pim + top, static_cast<size_t>(N) * (W / 2), a); },
+      F, Tw, G, C, [&](int r, int c, float dre, float dim) {
+        const float rr = __bfloat162float(Rre[r * M + c]);
+        const float ri = __bfloat162float(Rim[r * M + c]);
+        const float gre = dre * rr + dim * ri;
+        const float gim = dim * rr - dre * ri;
+        G[r * M + c] = make_float2(gre, gim);
+        esig += dre * dre + dim * dim;
+        eg += gre * gre + gim * gim;
+      });
+
+  const ZoomResult z = phase_zoom<M>(G, aux, red);
+  esig = block_sum(esig, red);
+  eg = block_sum(eg, red);
+
+  if (threadIdx.x == 0) {
+    lag_out[win] = z.lag;
+    zabs_out[win] = sqrtf(z.zre * z.zre + z.zim * z.zim);
+    esig_out[win] = esig;
+    eg_out[win] = eg;
   }
 }
 
@@ -262,8 +313,7 @@ template <int M>
 int launch_ref(const void* ref_raw, const void* F, const void* Tw, void* R, void* eref, int T1,
                void* stream) {
   const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
-  const cudaError_t err = cudaFuncSetAttribute(measure_ref_kernel<M>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = set_smem(measure_ref_kernel<M>, smem);
   if (err != cudaSuccess) return err;
   measure_ref_kernel<M><<<T1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(ref_raw), static_cast<const float2*>(F),
@@ -276,8 +326,7 @@ int launch(const void* raw, const void* F, const void* Tw, const void* R, const 
            void* lag, void* zre, void* zim, void* mag, void* papr, void* dre, void* dim, int T1,
            int N, void* stream) {
   const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
-  const cudaError_t err = cudaFuncSetAttribute(measure_kernel<M>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = set_smem(measure_kernel<M>, smem);
   if (err != cudaSuccess) return err;
   measure_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(raw), static_cast<const float2*>(F),
@@ -285,6 +334,21 @@ int launch(const void* raw, const void* F, const void* Tw, const void* R, const 
       static_cast<const float*>(eref), static_cast<float*>(lag), static_cast<float*>(zre),
       static_cast<float*>(zim), static_cast<float*>(mag), static_cast<float*>(papr),
       static_cast<__nv_bfloat16*>(dre), static_cast<__nv_bfloat16*>(dim));
+  return cudaGetLastError();
+}
+
+template <int M>
+int launch_planes(const void* pre, const void* pim, const void* rre, const void* rim,
+                  const void* F, const void* Tw, void* lag, void* zabs, void* esig, void* eg,
+                  int T1, int N, void* stream) {
+  const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
+  const cudaError_t err = set_smem(measure_planes_kernel<M>, smem);
+  if (err != cudaSuccess) return err;
+  measure_planes_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
+      static_cast<const __nv_bfloat16*>(rre), static_cast<const __nv_bfloat16*>(rim),
+      static_cast<const float2*>(F), static_cast<const float2*>(Tw), static_cast<float*>(lag),
+      static_cast<float*>(zabs), static_cast<float*>(esig), static_cast<float*>(eg));
   return cudaGetLastError();
 }
 
@@ -320,6 +384,25 @@ extern "C" int fused_measure_i8_spec(const void* raw, const void* F, const void*
     case 128:
       return fused::launch<128>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim, T1, N,
                                 stream);
+    default:
+      return -1;
+  }
+}
+
+// pre, pim bf16 [T, N, m/2, m]; rre, rim bf16 [T-1, m, m]; tables F, Tw
+// float2 [m, m]; outputs lag, zabs, esig, eg float [T-1, N]. Returns the
+// CUDA error code of the launch (0 on success); -1 for an unsupported m.
+extern "C" int fused_measure_planes(const void* pre, const void* pim, const void* rre,
+                                    const void* rim, const void* F, const void* Tw, void* lag,
+                                    void* zabs, void* esig, void* eg, int T1, int N, int m,
+                                    void* stream) {
+  switch (m) {
+    case 64:
+      return fused::launch_planes<64>(pre, pim, rre, rim, F, Tw, lag, zabs, esig, eg, T1, N,
+                                      stream);
+    case 128:
+      return fused::launch_planes<128>(pre, pim, rre, rim, F, Tw, lag, zabs, esig, eg, T1, N,
+                                       stream);
     default:
       return -1;
   }

@@ -1,22 +1,28 @@
-"""The fused i8 measure/apply pair (port of the spectrum-handoff pair of
+"""The fused measure/apply kernels (port of
 ``coherent_rtlsdr_tpu/kernels/pallas_fused.py``).
 
-    measure:  window --FFT--> D --x conj(R)--> G --phase-zoom--> (lag, z,
-              mag, papr), and D stored as bf16
-    apply:    D --x ramp(delay) x phase--> --IFFT--> centre half --> int8
+    measure:  window --FFT--> D --x conj(R)--> G --phase-zoom--> (lag, z, ...)
+    apply:    D --x ramp(delay) [x phase]--> --IFFT--> centre half
 
-The overlap-save window of output slot t is stream blocks (t, t+1). Blocks
-are the signed capture bytes in the wide layout ``[..., m/2, 2m]`` (row r
-holds samples [r*m, (r+1)*m) as I0 Q0 I1 Q1 ...), W = 2L = m*m, and spectra
-are in the permuted (k2, k1) layout of ``kernels/fft4step.py``.
+The overlap-save window of output slot t is stream blocks (t, t+1), W = 2L
+= m*m, and spectra are in the permuted (k2, k1) layout of
+``kernels/fft4step.py``. Two block formats:
+
+* i8 (the fused pipeline's spectrum-handoff pair): signed capture bytes in
+  the wide layout ``[..., m/2, 2m]`` (row r holds samples [r*m, (r+1)*m) as
+  I0 Q0 I1 Q1 ...). ``measure_ref`` transforms the reference windows once,
+  ``measure_spec`` measures every channel window against them and stores D
+  as bf16 (on the TPU one kernel body did both, carrying the reference
+  spectrum across the channels of a grid step), and ``apply_spec_i8`` turns
+  D into int8 wire bytes.
+* float (``FusedSpectral``): bf16 block planes ``[T, N, m/2, m]`` (re, im).
+  ``measure`` takes the reference window spectra as bf16 planes and returns
+  (lag, |z|, sum |D|^2, sum |G|^2); ``apply`` recomputes the forward
+  transform and returns the float32 centre half, with no phase factor.
 
 Each operation has a plain PyTorch version here (``*_plain``) and a CUDA
 kernel written by hand (``csrc/fused_measure.cu``, ``csrc/fused_apply.cu``,
-bound in ``kernels/fused_cuda.py``). Measure is two kernels: ``measure_ref``
-transforms the reference windows once, and ``measure_spec`` measures every
-channel window against them (on the TPU one kernel body did both, carrying
-the reference spectrum across the channels of a grid step). ``measure_ref``,
-``measure_spec`` and ``apply_spec_i8`` dispatch on the device of their
+bound in ``kernels/fused_cuda.py``), and dispatches on the device of its
 input: a CPU tensor runs the plain version, a CUDA tensor launches the
 kernel (or raises). The instance counts the runs of each (``COUNTS``).
 
@@ -27,7 +33,6 @@ points where the JAX kernel casts. The JAX kernels' 0/1 selection matmuls
 polynomial arctangent is ``torch.atan2``.
 """
 
-import contextlib
 import functools
 import math
 
@@ -35,40 +40,21 @@ import numpy as np
 import torch
 
 from coherent_rtlsdr_tpu_torch.constants import IQ_SCALE
-from coherent_rtlsdr_tpu_torch.kernels.fft4step import FFT4Step, bf16_round, cmatmul
+from coherent_rtlsdr_tpu_torch.kernels.fft4step import (
+    FFT4Step,
+    bf16_round,
+    cmatmul,
+    exact_f32_matmul,
+)
+from coherent_rtlsdr_tpu_torch.ops.delay import iramp_fraction
 
 _TWO_PI = 2.0 * math.pi
 
-# Run counts kept on each FusedPipelineKernels: launches of each CUDA kernel
-# (fused_measure_ref, fused_measure_i8_spec, fused_apply_spec_i8) and runs of
-# each plain version.
-COUNTS = ("measure_ref_launches", "measure_launches", "apply_launches",
-          "measure_ref_plain_runs", "measure_plain_runs", "apply_plain_runs")
-
-
-def _iramp_fraction(k_grid: torch.Tensor, d_int: torch.Tensor, W: int) -> torch.Tensor:
-    """Exact ``(k * d) mod W / W`` for integer ``d [...]`` over ``k_grid
-    [m, m]`` -> ``[..., m, m]``. W is a power of two, so mod is a bitwise AND
-    (two's complement for negative d); int64 keeps ``k * (d mod W)`` exact."""
-    mask = W - 1
-    dm = (d_int.to(torch.int64) & mask)[..., None, None]
-    return ((k_grid * dm) & mask).to(torch.float32) * (1.0 / W)
-
-
-@contextlib.contextmanager
-def _exact_f32_matmul(x: torch.Tensor):
-    """float32 matmuls without TF32 while the plain versions run on the
-    card (they emulate bf16 x bf16 -> f32 products exactly); the caller's
-    setting is restored on exit."""
-    if not x.is_cuda:
-        yield
-        return
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+# The operations with a CUDA kernel each; the instance counts the launches
+# of each kernel ("<name>_launches") and the runs of each plain version
+# ("<name>_plain_runs").
+KERNELS = ("measure_ref", "measure_spec", "apply_spec_i8", "measure", "apply")
+COUNTS = tuple(f"{k}_launches" for k in KERNELS) + tuple(f"{k}_plain_runs" for k in KERNELS)
 
 
 def _cmul(ar, ai, br, bi):
@@ -81,9 +67,9 @@ def _cmul_conj(ar, ai, br, bi):
 
 
 class FusedPipelineKernels:
-    """measure/apply pair for one ``fft_len = m*m`` on one device."""
+    """The measure/apply kernels for one ``fft_len = m*m`` on one device."""
 
-    def __init__(self, fft_len: int, device="cpu"):
+    def __init__(self, fft_len: int, device="cuda"):
         m = int(round(np.sqrt(fft_len)))
         if m * m != fft_len or m % 8:
             raise ValueError(f"fft_len {fft_len} unsupported (need square, m%8==0)")
@@ -99,7 +85,8 @@ class FusedPipelineKernels:
 
     def reset_counts(self):
         """Zero the run counts: one per CUDA kernel, counted by its wrapper
-        in ``fused_cuda`` where it launches, and one per plain version."""
+        in ``fused_cuda`` right after it launches, and one per plain
+        version."""
         for name in COUNTS:
             setattr(self, name, 0)
 
@@ -150,7 +137,38 @@ class FusedPipelineKernels:
             return self.apply_spec_i8_plain(dre, dim, advance, phase_re, phase_im)
         raise ValueError(f"no apply_spec_i8 for device {dre.device}")
 
+    def measure(self, pre, pim, rre, rim):
+        """Float path: block planes ``pre``/``pim`` bf16 ``[T, N, m/2, m]``
+        against the reference window spectra ``rre``/``rim`` bf16 ``[T-1,
+        m, m]``. Returns (lag, |z|, sum |D|^2, sum |G|^2), each float32
+        ``[T-1, N]``."""
+        if pre.is_cuda:
+            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+
+            return fused_cuda.measure_planes(self, pre, pim, rre, rim)
+        if pre.device.type == "cpu":
+            return self.measure_plain(pre, pim, rre, rim)
+        raise ValueError(f"no measure for device {pre.device}")
+
+    def apply(self, pre, pim, advance):
+        """Float path: block planes ``pre``/``pim`` bf16 ``[T, N, m/2, m]``
+        and advance float32 ``[T-1, N]``. Returns the delay-corrected
+        overlap-save centre half (yre, yim), each float32 ``[T-1, N, W/2]``."""
+        if pre.is_cuda:
+            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+
+            return fused_cuda.apply_planes(self, pre, pim, advance)
+        if pre.device.type == "cpu":
+            return self.apply_plain(pre, pim, advance)
+        raise ValueError(f"no apply for device {pre.device}")
+
     # -- plain versions ---------------------------------------------------
+    def _window_planes(self, pre, pim):
+        """bf16 block planes ``[T, ..., m/2, m]`` -> the float32 (re, im)
+        windows ``[T-1, ..., m, m]`` of blocks (t, t+1)."""
+        cat = lambda p: torch.cat([p[:-1], p[1:]], dim=-2).to(torch.float32)
+        return cat(pre), cat(pim)
+
     def _windows(self, raw):
         """Dequantize (``_dq_i8``) and de-interleave ``[T, ..., m/2, 2m]``
         int8 blocks into the (re, im) windows ``[T-1, ..., m, m]`` of blocks
@@ -184,7 +202,7 @@ class FusedPipelineKernels:
         int_lag = torch.round(d1)
 
         # Stage 2: deramp by the integer lag; 2m-bin bands are column pairs.
-        ph = _iramp_fraction(self.kg, -int_lag.to(torch.int64), W) * _TWO_PI
+        ph = iramp_fraction(self.kg, -int_lag, W) * _TWO_PI
         gcre, gcim = _cmul(gre, gim, torch.cos(ph), -torch.sin(ph))
         M2 = m // 2
         g2re = gcre.sum(-2).reshape(*lead, M2, 2).sum(-1)
@@ -203,20 +221,40 @@ class FusedPipelineKernels:
         eg = (gre * gre + gim * gim).sum((-2, -1))
         return int_lag + frac, zre.sum((-2, -1)), zim.sum((-2, -1)), eg
 
+    def _ramp(self, advance):
+        """The fractional-advance ramp for delay d = -advance,
+        exp(-2 pi i (iramp(floor(d)) + f frac(d))), as (re, im) ``[...,
+        m, m]``."""
+        d = -advance
+        di = torch.floor(d)
+        df = d - di
+        ph = (iramp_fraction(self.kg, di, self.fft_len)
+              + self.fg * df[..., None, None]) * _TWO_PI
+        return torch.cos(ph), -torch.sin(ph)
+
+    def _inverse_centre(self, gre, gim):
+        """Inverse four-step of permuted spectra, output rows m/4..3m/4
+        only: time samples W/4..3W/4, the overlap-save centre half."""
+        t = self.fft
+        m = self.m
+        rows = slice(m // 4, 3 * m // 4)
+        with exact_f32_matmul(gre):
+            c2re, c2im = cmatmul(bf16_round(gre), bf16_round(gim), t.fire, t.fiim)
+            b2re, b2im = _cmul_conj(c2re, c2im, t.tre, t.tim)
+            return cmatmul(t.fire[rows], t.fiim[rows], bf16_round(b2re), bf16_round(b2im))
+
     def measure_ref_plain(self, ref_raw: torch.Tensor):
         """Plain PyTorch version of :meth:`measure_ref`, on the device of its
         input."""
         self.measure_ref_plain_runs += 1
-        with _exact_f32_matmul(ref_raw):
-            rre, rim = self.fft.fft_planes(*self._windows(ref_raw))     # [T-1, m, m]
+        rre, rim = self.fft.fft_planes(*self._windows(ref_raw))     # [T-1, m, m]
         return torch.stack([rre, rim], dim=-1), (rre * rre + rim * rim).sum((-2, -1))
 
     def measure_spec_plain(self, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
         """Plain PyTorch version of :meth:`measure_spec`, on the device of its
         inputs."""
-        self.measure_plain_runs += 1
-        with _exact_f32_matmul(raw):
-            dre, dim = self.fft.fft_planes(*self._windows(raw))         # [T-1, N, m, m]
+        self.measure_spec_plain_runs += 1
+        dre, dim = self.fft.fft_planes(*self._windows(raw))         # [T-1, N, m, m]
         gre, gim = _cmul_conj(dre, dim, R[:, None, ..., 0], R[:, None, ..., 1])
         lag, z_re, z_im, eg = self._phase_zoom(gre, gim)
         esig = (dre * dre + dim * dim).sum((-2, -1))
@@ -234,32 +272,35 @@ class FusedPipelineKernels:
     def apply_spec_i8_plain(self, dre, dim, advance, phase_re, phase_im):
         """Plain PyTorch version of :meth:`apply_spec_i8`, on the device of
         its inputs."""
-        self.apply_plain_runs += 1
-        t = self.fft
-        m, W = self.m, self.fft_len
-        # Fractional-advance ramp, delay = -advance:
-        # exp(-2*pi*i*(iramp(floor(d)) + f*frac(d))), times the phase factor.
-        d = -advance
-        di = torch.floor(d)
-        df = d - di
-        ph = (_iramp_fraction(self.kg, di.to(torch.int64), W)
-              + self.fg * df[..., None, None]) * _TWO_PI
-        wr, wi = _cmul(torch.cos(ph), -torch.sin(ph),
-                       phase_re[..., None, None], phase_im[..., None, None])
+        self.apply_spec_i8_plain_runs += 1
+        wr, wi = _cmul(*self._ramp(advance), phase_re[..., None, None], phase_im[..., None, None])
         gre, gim = _cmul(dre.to(torch.float32), dim.to(torch.float32), wr, wi)
-
-        # Inverse four-step, output rows m/4..3m/4 only: time samples
-        # W/4..3W/4, the overlap-save centre half.
-        rows = slice(m // 4, 3 * m // 4)
-        with _exact_f32_matmul(dre):
-            c2re, c2im = cmatmul(bf16_round(gre), bf16_round(gim), t.fire, t.fiim)
-            b2re, b2im = _cmul_conj(c2re, c2im, t.tre, t.tim)
-            yre, yim = cmatmul(t.fire[rows], t.fiim[rows], bf16_round(b2re), bf16_round(b2im))
-
+        yre, yim = self._inverse_centre(gre, gim)
         inv = 1.0 / IQ_SCALE
         yq = torch.stack([yre * inv, yim * inv], dim=-1)       # [..., m/2, m, 2]
         yq = torch.clamp(torch.round(yq), -128.0, 127.0).to(torch.int8)
-        return yq.reshape(*yq.shape[:-2], 2 * m)
+        return yq.reshape(*yq.shape[:-2], 2 * self.m)
+
+    def measure_plain(self, pre, pim, rre, rim):
+        """Plain PyTorch version of :meth:`measure`, on the device of its
+        inputs."""
+        self.measure_plain_runs += 1
+        dre, dim = self.fft.fft_planes(*self._window_planes(pre, pim))   # [T-1, N, m, m]
+        gre, gim = _cmul_conj(dre, dim, rre.to(torch.float32)[:, None],
+                              rim.to(torch.float32)[:, None])
+        lag, z_re, z_im, eg = self._phase_zoom(gre, gim)
+        return (lag, torch.sqrt(z_re * z_re + z_im * z_im),
+                (dre * dre + dim * dim).sum((-2, -1)), eg)
+
+    def apply_plain(self, pre, pim, advance):
+        """Plain PyTorch version of :meth:`apply`, on the device of its
+        inputs."""
+        self.apply_plain_runs += 1
+        dre, dim = self.fft.fft_planes(*self._window_planes(pre, pim))
+        gre, gim = _cmul(dre, dim, *self._ramp(advance))
+        yre, yim = self._inverse_centre(gre, gim)
+        T1, N = advance.shape
+        return yre.reshape(T1, N, -1), yim.reshape(T1, N, -1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,10 +308,16 @@ def _cached_kernels(fft_len: int, device: torch.device) -> FusedPipelineKernels:
     return FusedPipelineKernels(fft_len, device)
 
 
-def get_fused_kernels(fft_len: int, device="cpu") -> FusedPipelineKernels:
-    """The one :class:`FusedPipelineKernels` per (fft_len, device) of the
-    process, so its launch counts cover every caller."""
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, a bare "cuda" pinned to the current
+    card so that one card has one cache key."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return _cached_kernels(fft_len, dev)
+    return dev
+
+
+def get_fused_kernels(fft_len: int, device="cuda") -> FusedPipelineKernels:
+    """The one :class:`FusedPipelineKernels` per (fft_len, device) of the
+    process, so its launch counts cover every caller."""
+    return _cached_kernels(fft_len, resolve_device(device))

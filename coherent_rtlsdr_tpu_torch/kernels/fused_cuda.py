@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels of ``kernels/fused.py``.
+"""Build and bind the hand-written CUDA kernels of ``kernels/fused.py``
+and ``kernels/fourstep.py``.
 
 The sources in ``csrc/`` have a plain C interface. At first use each is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``
@@ -23,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fused_measure.cu", "fused_apply.cu")
+SOURCES = ("fused_measure.cu", "fused_apply.cu", "fourstep.cu")
 HEADERS = ("fused_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -84,21 +85,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+# C entry points: (source, name, pointer arguments, int arguments), each
+# followed by the stream.
+ENTRY_POINTS = (
+    ("fused_measure.cu", "fused_measure_ref", 5, 2),
+    ("fused_measure.cu", "fused_measure_i8_spec", 12, 3),
+    ("fused_measure.cu", "fused_measure_planes", 10, 3),
+    ("fused_apply.cu", "fused_apply_spec_i8", 8, 3),
+    ("fused_apply.cu", "fused_apply_planes", 8, 3),
+    ("fourstep.cu", "fourstep_fft", 4, 3),
+)
+
+
 @functools.lru_cache(maxsize=None)
-def _functions():
-    """The C entry points (measure_ref, measure, apply), one kernel each."""
+def _functions() -> dict:
+    """The C entry points by name, one kernel each."""
     build()
-    lib = ctypes.CDLL(str(library_path("fused_measure.cu")))
-    ref = lib.fused_measure_ref
-    ref.argtypes = [_P] * 5 + [_I] * 2 + [_P]
-    ref.restype = _I
-    measure = lib.fused_measure_i8_spec
-    measure.argtypes = [_P] * 12 + [_I] * 3 + [_P]
-    measure.restype = _I
-    apply = ctypes.CDLL(str(library_path("fused_apply.cu"))).fused_apply_spec_i8
-    apply.argtypes = [_P] * 8 + [_I] * 3 + [_P]
-    apply.restype = _I
-    return ref, measure, apply
+    libs = {src: ctypes.CDLL(str(library_path(src))) for src in SOURCES}
+    fns = {}
+    for src, name, n_ptr, n_int in ENTRY_POINTS:
+        fn = getattr(libs[src], name)
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
+        fn.restype = _I
+        fns[name] = fn
+    return fns
 
 
 def _check(name, rc):
@@ -112,38 +122,45 @@ def _expect(x: torch.Tensor, name, dtype, shape, device):
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def _aligned(*xs):
+    """The tensors contiguous and 16-byte aligned (the kernels read up to
+    8-byte vectors from each base): a view that is neither is copied."""
+    out = [x.contiguous() for x in xs]
+    return [x.clone() if x.data_ptr() % 16 else x for x in out]
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(k):
-    """Interleaved (re, im) float32 [m, m, 2] tables on the instance's
-    device: F and conj(F)/m as their bf16-rounded values, and the twiddle."""
-    f = k.fft
+def _tables(fft):
+    """Interleaved (re, im) float32 [m, m, 2] tables of a bf16
+    ``FFT4Step`` on its device: F and conj(F)/m as their bf16-rounded
+    values, and the twiddle."""
     pair = lambda re, im: torch.stack([re, im], dim=-1).contiguous()
-    return pair(f.fre, f.fim), pair(f.fire, f.fiim), pair(f.tre, f.tim)
+    return pair(fft.fre, fft.fim), pair(fft.fire, fft.fiim), pair(fft.tre, fft.tim)
 
 
-def _setup(k, x: torch.Tensor):
+def _setup(k, x: torch.Tensor, fft):
     if k.m not in SUPPORTED_M:
-        raise ValueError(f"the CUDA fused kernels take m in {SUPPORTED_M}, got m = {k.m}")
+        raise ValueError(f"the CUDA kernels take m in {SUPPORTED_M}, got m = {k.m}")
     if x.device != k.device:
         raise ValueError(f"inputs on {x.device}, kernels built for {k.device}")
-    return _functions(), _tables(k), torch.cuda.current_stream(x.device).cuda_stream
+    return _functions(), _tables(fft), torch.cuda.current_stream(x.device).cuda_stream
 
 
 def measure_ref(k, ref_raw: torch.Tensor):
     """Launch ``fused_measure_ref`` (see ``FusedPipelineKernels.measure_ref``)."""
-    (ref, _, _), (F, _, Tw), stream = _setup(k, ref_raw)
+    fns, (F, _, Tw), stream = _setup(k, ref_raw, k.fft)
     m = k.m
     T = ref_raw.shape[0]
     if T < 2:
         raise ValueError(f"measure_ref needs at least 2 blocks, got {T}")
     dev = ref_raw.device
     _expect(ref_raw, "ref_raw", torch.int8, (T, m // 2, 2 * m), dev)
-    ref_raw = ref_raw.contiguous()
+    (ref_raw,) = _aligned(ref_raw)
     R = torch.empty((T - 1, m, m, 2), dtype=torch.float32, device=dev)
     eref = torch.empty((T - 1,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = ref(ref_raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(),
-                 eref.data_ptr(), T - 1, m, stream)
+        rc = fns["fused_measure_ref"](ref_raw.data_ptr(), F.data_ptr(), Tw.data_ptr(),
+                                      R.data_ptr(), eref.data_ptr(), T - 1, m, stream)
     _check("fused_measure_ref", rc)
     k.measure_ref_launches += 1
     return R, eref
@@ -151,7 +168,7 @@ def measure_ref(k, ref_raw: torch.Tensor):
 
 def measure_spec(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
     """Launch ``fused_measure_i8_spec`` (see ``FusedPipelineKernels.measure_spec``)."""
-    (_, measure, _), (F, _, Tw), stream = _setup(k, raw)
+    fns, (F, _, Tw), stream = _setup(k, raw, k.fft)
     m = k.m
     T, N = raw.shape[:2]
     if T < 2:
@@ -161,22 +178,22 @@ def measure_spec(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
     _expect(raw, "raw", torch.int8, (T, N, m // 2, 2 * m), dev)
     _expect(R, "R", torch.float32, (T1, m, m, 2), dev)
     _expect(eref, "eref", torch.float32, (T1,), dev)
-    raw, R, eref = raw.contiguous(), R.contiguous(), eref.contiguous()
+    raw, R, eref = _aligned(raw, R, eref)
     scal = [torch.empty((T1, N), dtype=torch.float32, device=dev) for _ in range(5)]
     dre = torch.empty((T1, N, m, m), dtype=torch.bfloat16, device=dev)
     dim = torch.empty_like(dre)
     with torch.cuda.device(dev):
-        rc = measure(raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(),
-                     eref.data_ptr(), *(s.data_ptr() for s in scal),
-                     dre.data_ptr(), dim.data_ptr(), T1, N, m, stream)
+        rc = fns["fused_measure_i8_spec"](
+            raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(), eref.data_ptr(),
+            *(s.data_ptr() for s in scal), dre.data_ptr(), dim.data_ptr(), T1, N, m, stream)
     _check("fused_measure_i8_spec", rc)
-    k.measure_launches += 1
+    k.measure_spec_launches += 1
     return (*scal, dre, dim)
 
 
 def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
     """Launch ``fused_apply_spec_i8`` (see ``FusedPipelineKernels.apply_spec_i8``)."""
-    (_, _, apply), (_, Fi, Tw), stream = _setup(k, dre)
+    fns, (_, Fi, Tw), stream = _setup(k, dre, k.fft)
     m = k.m
     T1, N = dre.shape[:2]
     dev = dre.device
@@ -184,11 +201,76 @@ def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
         _expect(x, name, torch.bfloat16, (T1, N, m, m), dev)
     for name, x in (("advance", advance), ("phase_re", phase_re), ("phase_im", phase_im)):
         _expect(x, name, torch.float32, (T1, N), dev)
-    args = [x.contiguous() for x in (dre, dim, advance, phase_re, phase_im)]
+    args = _aligned(dre, dim, advance, phase_re, phase_im)
     out = torch.empty((T1, N, m // 2, 2 * m), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
-        rc = apply(*(x.data_ptr() for x in args), Fi.data_ptr(), Tw.data_ptr(),
-                   out.data_ptr(), T1, N, m, stream)
+        rc = fns["fused_apply_spec_i8"](*(x.data_ptr() for x in args), Fi.data_ptr(),
+                                        Tw.data_ptr(), out.data_ptr(), T1, N, m, stream)
     _check("fused_apply_spec_i8", rc)
-    k.apply_launches += 1
+    k.apply_spec_i8_launches += 1
     return out
+
+
+def _expect_planes(pre, pim, dev, m):
+    T, N = pre.shape[:2]
+    if T < 2:
+        raise ValueError(f"the float kernels need at least 2 blocks, got {T}")
+    for name, x in (("pre", pre), ("pim", pim)):
+        _expect(x, name, torch.bfloat16, (T, N, m // 2, m), dev)
+    return T - 1, N
+
+
+def measure_planes(k, pre, pim, rre, rim):
+    """Launch ``fused_measure_planes`` (see ``FusedPipelineKernels.measure``)."""
+    fns, (F, _, Tw), stream = _setup(k, pre, k.fft)
+    m, dev = k.m, pre.device
+    T1, N = _expect_planes(pre, pim, dev, m)
+    for name, x in (("rre", rre), ("rim", rim)):
+        _expect(x, name, torch.bfloat16, (T1, m, m), dev)
+    args = _aligned(pre, pim, rre, rim)
+    out = [torch.empty((T1, N), dtype=torch.float32, device=dev) for _ in range(4)]
+    with torch.cuda.device(dev):
+        rc = fns["fused_measure_planes"](*(x.data_ptr() for x in args), F.data_ptr(),
+                                         Tw.data_ptr(), *(o.data_ptr() for o in out),
+                                         T1, N, m, stream)
+    _check("fused_measure_planes", rc)
+    k.measure_launches += 1
+    return tuple(out)
+
+
+def apply_planes(k, pre, pim, advance):
+    """Launch ``fused_apply_planes`` (see ``FusedPipelineKernels.apply``)."""
+    fns, (F, Fi, Tw), stream = _setup(k, pre, k.fft)
+    m, dev = k.m, pre.device
+    T1, N = _expect_planes(pre, pim, dev, m)
+    _expect(advance, "advance", torch.float32, (T1, N), dev)
+    args = _aligned(pre, pim, advance)
+    yre = torch.empty((T1, N, m * m // 2), dtype=torch.float32, device=dev)
+    yim = torch.empty_like(yre)
+    with torch.cuda.device(dev):
+        rc = fns["fused_apply_planes"](*(x.data_ptr() for x in args), F.data_ptr(),
+                                       Fi.data_ptr(), Tw.data_ptr(), yre.data_ptr(),
+                                       yim.data_ptr(), T1, N, m, stream)
+    _check("fused_apply_planes", rc)
+    k.apply_launches += 1
+    return yre, yim
+
+
+def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Launch ``fourstep_fft`` on ``x`` complex64 ``[B, m, m]`` (see
+    ``FFT4StepKernel``); returns complex64 ``[B, m, m]``."""
+    fns, (F, Fi, Tw), stream = _setup(k, x, k.plain)
+    m, dev = k.m, x.device
+    B = x.shape[0]
+    _expect(x, "x", torch.complex64, (B, m, m), dev)
+    (x,) = _aligned(x)
+    y = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        rc = fns["fourstep_fft"](x.data_ptr(), (Fi if inverse else F).data_ptr(),
+                                 Tw.data_ptr(), y.data_ptr(), B, m, int(inverse), stream)
+    _check("fourstep_fft", rc)
+    if inverse:
+        k.ifft_launches += 1
+    else:
+        k.fft_launches += 1
+    return y

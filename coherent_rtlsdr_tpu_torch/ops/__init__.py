@@ -1,1 +1,2 @@
-"""Elementwise DSP ops of the fused path."""
+"""DSP ops: conversion, phase, delay ramps, spectral statistics, lag
+estimation."""

@@ -26,6 +26,13 @@ def u8_to_i8(raw_u8: torch.Tensor) -> torch.Tensor:
     return (raw_u8 ^ 0x80).view(torch.int8)
 
 
+def u8_to_c64(raw_u8: torch.Tensor, scale: float = IQ_SCALE) -> torch.Tensor:
+    """``[..., L, 2]`` uint8 interleaved IQ -> ``[..., L]`` complex64,
+    value = (u8 - 128) * scale (the generic path's input)."""
+    f = raw_u8.to(torch.float32) - 128.0
+    return torch.complex(f[..., 0] * scale, f[..., 1] * scale)
+
+
 def i8_iq_to_c64(raw_i8: torch.Tensor, scale: float = IQ_SCALE) -> torch.Tensor:
     """``[..., L, 2]`` int8 interleaved IQ -> ``[..., L]`` complex64."""
     f = raw_i8.to(torch.float32)

@@ -1,25 +1,40 @@
-"""Fractional-delay spectrum ramp (port of the ramp half of
-``coherent_rtlsdr_tpu/ops/delay.py``), used by the synthesizer.
+"""Fractional-delay correction in the frequency domain (port of the ramp
+half of ``coherent_rtlsdr_tpu/ops/delay.py``): the delay ramp, its
+application with a phase factor, and the overlap-save streaming advance.
 
 Sign convention: a channel measured at lag d (delayed by d) is corrected by
 advancing it d samples. The time-domain Farrow interpolator is not ported
 yet (ROADMAP.md, Queue 1).
 """
 
+from typing import Tuple
+
 import torch
 
 
-def _integer_delay_ramp_phase(fft_len: int, d_int: torch.Tensor) -> torch.Tensor:
-    """Exact phase fraction ``(k * d) mod W / W`` for integer delays.
+def iramp_fraction(k: torch.Tensor, d_int: torch.Tensor, W: int) -> torch.Tensor:
+    """Exact phase fraction ``(k * d) mod W / W`` of integer delays ``d_int
+    [...]`` (any dtype holding integers) over the bin indices ``k`` (int64,
+    any shape) -> ``[..., *k.shape]``.
 
     ``f32(k/W) * d`` would lose ~eps*|d| cycles of phase, so the modular
     reduction is done in int64, where ``k * (d mod W)`` is exact for every
     W this package uses.
     """
-    W = fft_len
-    k = torch.arange(W, dtype=torch.int64, device=d_int.device)
-    dm = torch.remainder(d_int.to(torch.int64), W)[..., None]
+    dm = torch.remainder(d_int.to(torch.int64), W)
+    dm = dm.reshape(*dm.shape, *([1] * k.dim()))
     return torch.remainder(k * dm, W).to(torch.float32) / W
+
+
+def _integer_delay_ramp_phase(fft_len: int, d_int: torch.Tensor) -> torch.Tensor:
+    """:func:`iramp_fraction` over the natural-order bins ``[W]``."""
+    k = torch.arange(fft_len, dtype=torch.int64, device=d_int.device)
+    return iramp_fraction(k, d_int, fft_len)
+
+
+def expj(theta: torch.Tensor) -> torch.Tensor:
+    """``exp(i * theta)`` as complex64 for float32 ``theta``."""
+    return torch.polar(torch.ones_like(theta), theta)
 
 
 def delay_ramp(fft_len: int, delay: torch.Tensor, dtype=torch.complex64) -> torch.Tensor:
@@ -37,4 +52,31 @@ def delay_ramp(fft_len: int, delay: torch.Tensor, dtype=torch.complex64) -> torc
     d_frac = (d - d_int)[..., None]
     f = torch.fft.fftfreq(fft_len, dtype=torch.float32, device=d.device)
     phase = _integer_delay_ramp_phase(fft_len, d_int) + f * d_frac
-    return torch.exp(torch.complex(torch.zeros_like(phase), -2.0 * torch.pi * phase)).to(dtype)
+    return expj(-2.0 * torch.pi * phase).to(dtype)
+
+
+def apply_delay_phase_freq(F: torch.Tensor, advance: torch.Tensor,
+                           phase: torch.Tensor) -> torch.Tensor:
+    """Fractional *advance* and a complex phase factor in the frequency
+    domain. F: ``[..., W]`` spectra; advance: ``[...]`` samples; phase:
+    ``[...]`` unit-modulus complex."""
+    W = F.shape[-1]
+    adv = torch.as_tensor(advance, dtype=torch.float32, device=F.device)
+    ramp = delay_ramp(W, -adv, dtype=F.dtype)
+    return F * ramp * torch.as_tensor(phase, device=F.device)[..., None]
+
+
+def overlap_save_advance(hist: torch.Tensor, cur: torch.Tensor, advance: torch.Tensor,
+                         phase: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming fractional advance with overlap-save.
+
+    hist, cur: ``[..., L]`` (previous and current block); advance ``[...]``
+    samples, valid for ``|advance| <= L/2``; phase ``[...]`` complex.
+    Returns ``(new_hist, out)``, where ``out[n]`` is the corrected sample
+    at stream time ``t0 - L/2 + n`` (t0 = first sample of ``cur``): a fixed
+    latency of L/2 samples buys a +/- L/2 correction range.
+    """
+    L = cur.shape[-1]
+    w = torch.cat([hist, cur], dim=-1)
+    y = torch.fft.ifft(apply_delay_phase_freq(torch.fft.fft(w, dim=-1), advance, phase), dim=-1)
+    return cur, y[..., L // 2: L // 2 + L].to(w.dtype)

@@ -1,5 +1,5 @@
-"""The block pipeline, fused i8 path: state, control law, streaming step
-and drivers, offline engine."""
+"""The block pipeline over every spectral backend: state, control law,
+streaming step and drivers, offline engine."""
 
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
     BlockOutput,
@@ -13,6 +13,7 @@ from coherent_rtlsdr_tpu_torch.pipeline.step import step
 from coherent_rtlsdr_tpu_torch.pipeline.offline import align_offline
 from coherent_rtlsdr_tpu_torch.pipeline.drivers import (
     make_packed_scan_runner,
+    make_scan_runner,
     make_packed_step,
     run_capture,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "control_update",
     "step",
     "align_offline",
+    "make_scan_runner",
     "make_packed_scan_runner",
     "make_packed_step",
     "run_capture",

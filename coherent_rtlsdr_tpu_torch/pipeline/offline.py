@@ -1,12 +1,16 @@
-"""Offline (capture-at-rest) alignment, fused i8 path (port of
+"""Offline (capture-at-rest) alignment (port of
 ``coherent_rtlsdr_tpu/pipeline/offline.py``): the measure -> smooth -> apply
 engine.
 
-  Phase A (parallel over T x N): the measure kernel over all windows.
+  Phase A (parallel over T x N): window spectra, lag and quality.
   Phase B (small): smooth the measurement tracks -
             "global": quality-weighted average (constant true delays);
             "ema":    the streaming EMA law, a linear recurrence.
-  Phase C (parallel over T x N): the apply kernel, straight to wire bytes.
+  Phase C (parallel over T x N): fractional advance and phase, overlap-save.
+
+The generic path runs the phases through a spectral backend
+(``kernels/backend.py``); fft_impl="fused" runs the i8 kernels, raw bytes to
+wire bytes.
 """
 
 import dataclasses
@@ -14,31 +18,39 @@ from typing import Optional
 
 import torch
 
-from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
-from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64, u8_to_i8
-from coherent_rtlsdr_tpu_torch.ops.phase import unit_phasor
-from coherent_rtlsdr_tpu_torch.pipeline.state import PipelineConfig, check_ported, fused_m
+from coherent_rtlsdr_tpu_torch.kernels.backend import FusedSpectral, get_spectral
+from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64, u8_to_c64, u8_to_i8
+from coherent_rtlsdr_tpu_torch.ops.phase import phase_correction_estimate, unit_phasor
+from coherent_rtlsdr_tpu_torch.pipeline.state import PipelineConfig, fused_m
 
 
 @dataclasses.dataclass
 class OfflineResult:
-    """``aligned``/``ref`` are the complex64 reconstructions from the wire
-    bytes (what clients receive), computed on access."""
+    """The fused path fills ``wire``/``wire_ref`` (int8 straight from the
+    apply kernel), and ``aligned``/``ref`` are the complex64 reconstructions
+    from those bytes (what clients receive), computed on access. The
+    generic path fills ``aligned``/``ref`` as complex64 and no wire bytes."""
 
     lag: torch.Tensor       # [T-1, N] raw per-block lag measurements
     delay: torch.Tensor     # [T-1, N] smoothed applied advance
     mag: torch.Tensor       # [T-1, N]
     papr: torch.Tensor      # [T-1, N]
     phase: torch.Tensor     # [T-1, N] c64 applied phase factors
-    wire: torch.Tensor      # [T-1, N, 2L] int8 flat bytes
-    wire_ref: torch.Tensor  # [T-1, 2L] int8 flat bytes
+    wire: Optional[torch.Tensor] = None      # [T-1, N, 2L] int8 flat bytes (fused)
+    wire_ref: Optional[torch.Tensor] = None  # [T-1, 2L] int8 flat bytes (fused)
+    aligned_c64: Optional[torch.Tensor] = None  # [T-1, N, L] c64 (generic)
+    ref_c64: Optional[torch.Tensor] = None      # [T-1, L] c64 (generic)
 
     @property
     def aligned(self) -> torch.Tensor:   # [T-1, N, L] c64
+        if self.aligned_c64 is not None:
+            return self.aligned_c64
         return i8_iq_to_c64(self.wire.reshape(*self.wire.shape[:-1], -1, 2))
 
     @property
     def ref(self) -> torch.Tensor:       # [T-1, L] c64
+        if self.ref_c64 is not None:
+            return self.ref_c64
         return i8_iq_to_c64(self.wire_ref.reshape(*self.wire_ref.shape[:-1], -1, 2))
 
 
@@ -75,6 +87,26 @@ def smooth_delays(cfg: PipelineConfig, lag: torch.Tensor, mag: torch.Tensor,
     raise ValueError(f"unknown smoothing: {smoothing}")
 
 
+def measure_blocks(cfg: PipelineConfig, sp, ctx):
+    """Phase A on the prepared windows. Returns (lag, mag, papr), each
+    ``[T', N]``."""
+    est = sp.measure(ctx, cfg.lag_method)
+    return est.lag, est.mag, est.papr
+
+
+def apply_corrections(cfg: PipelineConfig, sp, ctx, w_ref: torch.Tensor, delay: torch.Tensor,
+                      mag: torch.Tensor, smoothing: str, phase_alpha: Optional[float] = None):
+    """Phase C: fractional advance and phase correction, overlap-save
+    centre. ``w_ref [T', 2L]`` are the time-domain reference windows.
+    Returns (aligned [T', N, L], ref [T', L], phase factors [T', N])."""
+    L = cfg.block_len
+    out_raw = sp.correct(ctx, delay)                     # [T', N, L]
+    out_ref = w_ref[..., L // 2: L // 2 + L]             # [T', L]
+    pc_inst = phase_correction_estimate(out_raw, out_ref[:, None])
+    pc = _smooth_phases(cfg, pc_inst, mag, smoothing, phase_alpha)
+    return out_raw * pc[..., None], out_ref, pc
+
+
 def _smooth_phases(cfg: PipelineConfig, pc_inst: torch.Tensor, mag: torch.Tensor,
                    smoothing: str, phase_alpha: Optional[float] = None) -> torch.Tensor:
     """Quality-gated phase smoothing of instantaneous factors [T', N] c64."""
@@ -88,11 +120,12 @@ def _smooth_phases(cfg: PipelineConfig, pc_inst: torch.Tensor, mag: torch.Tensor
     return (z / torch.where(zmag > 0, zmag, 1.0)).to(torch.complex64)
 
 
-def _align_offline_fused_i8(cfg: PipelineConfig, k, sig_u8: torch.Tensor,
+def _align_offline_fused_i8(cfg: PipelineConfig, sp: FusedSpectral, sig_u8: torch.Tensor,
                             ref_u8: torch.Tensor, smoothing: str) -> OfflineResult:
     """The i8-native engine: the u8 XOR is the only pass over the samples
     outside the two kernels. The phase estimate is arg(z) from the measure
     kernel, as in the streaming step."""
+    k = sp._k
     m = fused_m(cfg)
     T, N = sig_u8.shape[:2]
     L = cfg.block_len
@@ -117,9 +150,22 @@ def _align_offline_fused_i8(cfg: PipelineConfig, k, sig_u8: torch.Tensor,
 def align_offline(cfg: PipelineConfig, sig_u8: torch.Tensor, ref_u8: torch.Tensor,
                   smoothing: str = "global") -> OfflineResult:
     """Align a whole capture ``sig_u8 [T, N, L, 2]`` (or flat ``[T, N, 2L]``)
-    against ``ref_u8 [T, L, 2]`` (or ``[T, 2L]``). Returns T-1 output blocks
-    (block 0 seeds the overlap-save history, like the streaming step's
-    first block)."""
-    check_ported(cfg)
-    k = get_fused_kernels(2 * cfg.block_len, sig_u8.device)
-    return _align_offline_fused_i8(cfg, k, sig_u8, ref_u8, smoothing)
+    against ``ref_u8 [T, L, 2]`` (or ``[T, 2L]``) on the device of the
+    bytes. Returns T-1 output blocks (block 0 seeds the overlap-save
+    history, like the streaming step's first block)."""
+    L = cfg.block_len
+    sp = get_spectral(cfg, 2 * L, sig_u8.device)
+    if isinstance(sp, FusedSpectral):
+        return _align_offline_fused_i8(cfg, sp, sig_u8, ref_u8, smoothing)
+
+    T, N = sig_u8.shape[:2]
+    sig = u8_to_c64(sig_u8.reshape(T, N, L, 2))   # [T, N, L]
+    ref = u8_to_c64(ref_u8.reshape(T, L, 2))      # [T, L]
+    w_ref = torch.cat([ref[:-1], ref[1:]], dim=-1)
+    ctx = sp.prepare(sig, ref)
+    del sig
+    lag, mag, papr = measure_blocks(cfg, sp, ctx)
+    delay = torch.clamp(smooth_delays(cfg, lag, mag, smoothing), -cfg.max_delay, cfg.max_delay)
+    aligned, out_ref, pc = apply_corrections(cfg, sp, ctx, w_ref, delay, mag, smoothing)
+    return OfflineResult(lag=lag, delay=delay, mag=mag, papr=papr, phase=pc,
+                         aligned_c64=aligned, ref_c64=out_ref)

@@ -1,13 +1,14 @@
 """Pipeline configuration, state and output containers (port of
-``coherent_rtlsdr_tpu/pipeline/state.py``, fused layout).
+``coherent_rtlsdr_tpu/pipeline/state.py``).
 
 The public layouts are the JAX package's, so the two can be compared leaf
-by leaf: ``phase`` is ``[N, 2]`` float32 (re, im), the history is the signed
-capture bytes in the wide ``[N, m/2, 2m]`` layout, wire bytes are flat
-``[.., N, 2L]`` int8. Per-channel capture seqnums are uint32 in the JAX
-package; PyTorch's uint32 arithmetic is incomplete, so ``last_seq`` is int64
-holding the same value (always in [0, 2^32)), and ``pack_state`` writes the
-same int32 bit pattern as the JAX bitcast.
+by leaf: ``phase`` is ``[N, 2]`` float32 (re, im); the history is the
+signed capture bytes in the wide ``[N, m/2, 2m]`` layout on the fused path
+and ``[N, L, 2]`` float32 (re, im) pairs on the generic path; fused wire
+bytes are flat ``[.., N, 2L]`` int8. Per-channel capture seqnums are
+uint32 in the JAX package; PyTorch's uint32 arithmetic is incomplete, so
+``last_seq`` is int64 holding the same value (always in [0, 2^32)), and
+``pack_state`` writes the same int32 bit pattern as the JAX bitcast.
 """
 
 import dataclasses
@@ -35,29 +36,18 @@ class PipelineConfig:
     ctrl_scale: float = constants.CTRL_SCALE
     # Max commanded advance; must stay within the overlap-save safe range.
     max_delay: Optional[float] = None
+    # Fractional-lag estimator: "phase_slope" | "parabolic" | "integer" |
+    # "phase_zoom" (the only one of fft_impl="fused").
     lag_method: str = "phase_slope"
     min_corr_mag: float = 0.1
-    # The port runs fft_impl="fused" with lag_method="phase_zoom"; the other
-    # spectral backends are not ported yet (ROADMAP.md, Queue 1).
+    # Spectral backend (kernels/backend.py): "xla" | "mxu" | "pallas" |
+    # "fused" | "auto"; mxu_precision ("bf16" | "f32") is read by "mxu".
     fft_impl: str = "xla"
     mxu_precision: str = "bf16"
 
     def __post_init__(self):
         if self.max_delay is None:
             object.__setattr__(self, "max_delay", self.block_len / 2.0 - 8.0)
-
-
-def check_ported(cfg: PipelineConfig):
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet, rather than run another one in its place."""
-    if cfg.fft_impl != "fused":
-        raise NotImplementedError(
-            f"fft_impl='{cfg.fft_impl}' is not ported; the port runs fft_impl='fused' "
-            "(ROADMAP.md, Queue 1: generic (non-fused) backends)")
-    if cfg.mxu_precision != "bf16":
-        raise NotImplementedError(
-            f"mxu_precision='{cfg.mxu_precision}' is not ported; the fused kernels take "
-            "bf16 operands only (ROADMAP.md, Queue 1: generic (non-fused) backends)")
 
 
 def fused_m(cfg: PipelineConfig) -> int:
@@ -76,8 +66,9 @@ class PipelineState:
     mag: torch.Tensor        # [N] f32 last correlation coefficient
     papr: torch.Tensor       # [N] f32 last correlation PAPR
     synced: torch.Tensor     # [N] bool
-    hist: torch.Tensor       # [N, m/2, 2m] i8 previous block (signed bytes)
-    ref_hist: torch.Tensor   # [m/2, 2m] i8 previous reference block
+    hist: torch.Tensor       # previous block: [N, m/2, 2m] i8 signed bytes
+                             # (fused) or [N, L, 2] f32 (re, im)
+    ref_hist: torch.Tensor   # previous reference block: [m/2, 2m] i8 or [L, 2] f32
     block_idx: torch.Tensor  # i32 scalar
     last_seq: torch.Tensor   # [N] i64, a uint32 value: last capture seqnum
     gaps: torch.Tensor       # [N] i32 cumulative gap events
@@ -112,21 +103,29 @@ def stack_telemetry(ts) -> Telemetry:
 
 @dataclasses.dataclass
 class BlockOutput:
-    """One block's output: the int8 wire frame straight from the apply
-    kernel as flat interleaved bytes, and telemetry. ``aligned``/``ref`` are
-    the complex64 reconstructions from the wire bytes (what clients receive),
-    computed on access."""
+    """One block's output and telemetry. The fused path emits the int8
+    wire frame straight from the apply kernel as flat interleaved bytes
+    (``wire [N, 2L]``, ``wire_ref [2L]``), and ``aligned``/``ref`` are the
+    complex64 reconstructions from those bytes (what clients receive),
+    computed on access. The generic path emits ``aligned [N, L]`` and
+    ``ref [L]`` complex64 and no wire bytes; the drivers quantize them."""
 
     telemetry: Telemetry
-    wire: torch.Tensor       # [N, 2L] int8
-    wire_ref: torch.Tensor   # [2L] int8
+    wire: Optional[torch.Tensor] = None       # [N, 2L] int8 (fused)
+    wire_ref: Optional[torch.Tensor] = None   # [2L] int8 (fused)
+    aligned_c64: Optional[torch.Tensor] = None  # [N, L] complex64 (generic)
+    ref_c64: Optional[torch.Tensor] = None      # [L] complex64 (generic)
 
     @property
     def aligned(self) -> torch.Tensor:
+        if self.aligned_c64 is not None:
+            return self.aligned_c64
         return i8_iq_to_c64(self.wire.reshape(*self.wire.shape[:-1], -1, 2))
 
     @property
     def ref(self) -> torch.Tensor:
+        if self.ref_c64 is not None:
+            return self.ref_c64
         return i8_iq_to_c64(self.wire_ref.reshape(*self.wire_ref.shape[:-1], -1, 2))
 
 
@@ -163,7 +162,8 @@ def pack_state(s: PipelineState):
       ppack [N, 6] f32  - PPACK_COLS
       ipack [N, 4] i32  - IPACK_COLS (last_seq as the int32 of the same bits;
                           block_idx repeated down the column)
-      hist  [N+1, m/2, 2m] i8 - ref_hist row 0, then the channel rows
+      hist  [N+1, m/2, 2m] i8 (fused) or [N+1, L, 2] f32 (generic) -
+            ref_hist row 0, then the channel rows
     """
     ppack = torch.stack(
         [s.delay, s.phase[..., 0], s.phase[..., 1], s.lag, s.mag, s.papr], dim=-1)
@@ -194,48 +194,59 @@ def unpack_state(ppack, ipack, hist) -> PipelineState:
     )
 
 
-def init_state(cfg: PipelineConfig, device="cpu") -> PipelineState:
-    """Initial fused-layout state: zero history, unit phase, no sync."""
+def init_state(cfg: PipelineConfig, device="cuda") -> PipelineState:
+    """Initial state on ``device``: zero history in the layout of
+    ``cfg.fft_impl``, unit phase, no sync."""
     N, L = cfg.n_channels, cfg.block_len
-    m = fused_m(cfg)
     dev = torch.device(device)
     phase = torch.zeros((N, 2), dtype=torch.float32, device=dev)
     phase[:, 0] = 1.0
     zeros = lambda: torch.zeros((N,), dtype=torch.float32, device=dev)
+    if cfg.fft_impl == "fused":
+        m = fused_m(cfg)
+        hist = torch.zeros((N, L // m, 2 * m), dtype=torch.int8, device=dev)
+        ref_hist = torch.zeros((L // m, 2 * m), dtype=torch.int8, device=dev)
+    else:
+        hist = torch.zeros((N, L, 2), dtype=torch.float32, device=dev)
+        ref_hist = torch.zeros((L, 2), dtype=torch.float32, device=dev)
     return PipelineState(
         delay=zeros(), phase=phase, lag=zeros(), mag=zeros(), papr=zeros(),
         synced=torch.zeros((N,), dtype=torch.bool, device=dev),
-        hist=torch.zeros((N, L // m, 2 * m), dtype=torch.int8, device=dev),
-        ref_hist=torch.zeros((L // m, 2 * m), dtype=torch.int8, device=dev),
+        hist=hist, ref_hist=ref_hist,
         block_idx=torch.zeros((), dtype=torch.int32, device=dev),
         last_seq=torch.zeros((N,), dtype=torch.int64, device=dev),
         gaps=torch.zeros((N,), dtype=torch.int32, device=dev),
     )
 
 
+# The JAX package's leaf dtypes; the history keeps its own (int8 on the
+# fused path, float32 on the generic path).
 _NUMPY_DTYPES = {
     "delay": np.float32, "phase": np.float32, "lag": np.float32, "mag": np.float32,
-    "papr": np.float32, "synced": np.bool_, "hist": np.int8, "ref_hist": np.int8,
+    "papr": np.float32, "synced": np.bool_, "hist": None, "ref_hist": None,
     "block_idx": np.int32, "last_seq": np.uint32, "gaps": np.int32,
 }
 
 
-def state_from_numpy(leaves, device="cpu") -> PipelineState:
+def state_from_numpy(leaves, device="cuda") -> PipelineState:
     """The port's state from the JAX package's ``PipelineState`` leaves as
     numpy arrays (a mapping or any object with the leaf attributes), e.g. to
     start both steps from the same mid-stream state."""
     get = leaves.__getitem__ if isinstance(leaves, dict) else lambda k: getattr(leaves, k)
     out = {}
     for name, dt in _NUMPY_DTYPES.items():
-        a = np.asarray(get(name)).astype(dt)
-        if name == "last_seq":
-            a = a.astype(np.int64)
-        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        # np.array, not np.ascontiguousarray: the latter turns the 0-d
+        # block_idx into shape (1,).
+        a = np.array(get(name), dtype=np.int64 if name == "last_seq" else dt, order="C")
+        out[name] = torch.from_numpy(a).to(device)
     return PipelineState(**out)
 
 
 def state_to_numpy(s: PipelineState) -> dict:
     """The port's state as numpy leaves in the JAX package's dtypes
     (``last_seq`` back to uint32)."""
-    return {name: getattr(s, name).cpu().numpy().astype(dt)
-            for name, dt in _NUMPY_DTYPES.items()}
+    out = {}
+    for name, dt in _NUMPY_DTYPES.items():
+        a = getattr(s, name).cpu().numpy()
+        out[name] = a if dt is None else a.astype(dt)
+    return out

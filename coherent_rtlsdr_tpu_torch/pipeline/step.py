@@ -1,15 +1,21 @@
-"""The per-block streaming step, fused i8 path (port of
-``coherent_rtlsdr_tpu/pipeline/step.py``: ``_seq_gap``, ``_step_fused_u8``
-and the ``step`` entry).
+"""The per-block streaming step (port of
+``coherent_rtlsdr_tpu/pipeline/step.py``: ``_seq_gap``, the generic body of
+``step`` and ``_step_fused_u8``).
 
-Raw u8 bytes in, int8 wire bytes out:
+Generic path (fft_impl "xla", "mxu", "pallas", "auto"), through the spectral
+backend of ``kernels/backend.py``:
 
-    XOR 0x80 -> measure kernel (window = history block + this block)
-             -> control law -> phase EMA -> apply kernel -> wire bytes
+    u8 -> complex -> window spectra (history block + this block)
+       -> measure -> control law -> fractional advance (overlap-save centre)
+       -> phase estimate on the aligned block -> phase EMA -> aligned complex
 
-The phase estimate is arg(z) of the measure kernel's correlation value
-(Parseval inner product at the measured lag), and the phase correction is
-folded into the apply kernel's frequency-domain ramp.
+Fused path (fft_impl "fused"), raw u8 bytes in, int8 wire bytes out:
+
+    XOR 0x80 -> measure kernel -> control law -> phase EMA -> apply kernel
+
+where the phase estimate is arg(z) of the measure kernel's correlation
+value (Parseval inner product at the measured lag) and the phase correction
+is folded into the apply kernel's frequency-domain ramp.
 """
 
 from typing import Optional, Tuple
@@ -18,9 +24,15 @@ import numpy as np
 import torch
 
 from coherent_rtlsdr_tpu_torch.constants import IQ_SCALE
+from coherent_rtlsdr_tpu_torch.kernels.backend import get_spectral
 from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
-from coherent_rtlsdr_tpu_torch.ops.convert import c2f, f2c, u8_to_i8
-from coherent_rtlsdr_tpu_torch.ops.phase import ema_complex, unit_phasor
+from coherent_rtlsdr_tpu_torch.ops.convert import c2f, f2c, u8_to_c64, u8_to_i8
+from coherent_rtlsdr_tpu_torch.ops.phase import (
+    ema_complex,
+    phase_correction_estimate,
+    unit_phasor,
+)
+from coherent_rtlsdr_tpu_torch.ops.spectral import rms
 from coherent_rtlsdr_tpu_torch.pipeline.control import control_update
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
     SEQ_MASK,
@@ -28,7 +40,6 @@ from coherent_rtlsdr_tpu_torch.pipeline.state import (
     PipelineConfig,
     PipelineState,
     Telemetry,
-    check_ported,
     fused_m,
 )
 
@@ -73,8 +84,50 @@ def step(
     jumps has its measurement ignored this block, its phase frozen, its sync
     flag dropped and its gap count bumped. ``seq=None`` means contiguous.
     """
-    check_ported(cfg)
-    return _step_fused_u8(cfg, state, sig_u8, ref_u8, update_gate, seq)
+    if cfg.fft_impl == "fused":
+        return _step_fused_u8(cfg, state, sig_u8, ref_u8, update_gate, seq)
+
+    N, L = cfg.n_channels, cfg.block_len
+    dev = state.delay.device
+    gate = torch.as_tensor(update_gate, dtype=torch.bool, device=dev)
+    sig = u8_to_c64(sig_u8.reshape(N, L, 2))   # [N, L]
+    ref = u8_to_c64(ref_u8.reshape(L, 2))      # [L]
+    seq, gap, new_gaps, meas_ok = _seq_gap(state, seq, gate)
+    sp = get_spectral(cfg, 2 * L, dev)
+
+    # One preparation pass feeds both measurement and correction; the
+    # window of this step is (history, current).
+    ref_prev = f2c(state.ref_hist)
+    ctx = sp.prepare(torch.stack([f2c(state.hist), sig]), torch.stack([ref_prev, ref]))
+    meas = sp.measure(ctx, cfg.lag_method)
+    lag, mag, papr = meas.lag[0], meas.mag[0], meas.papr[0]
+
+    new_delay, new_synced = control_update(cfg, state.delay, state.synced, lag, mag, meas_ok)
+    new_synced = new_synced & ~gap
+
+    out_raw = sp.correct(ctx, new_delay[None])[0]                    # [N, L] aligned
+    out_ref = torch.cat([ref_prev[L // 2:], ref[: L // 2]])          # [L] same latency
+
+    # Phase estimate on the time-aligned signal, gated by the reference
+    # noise flag and by measurement quality.
+    pc_inst = phase_correction_estimate(out_raw, out_ref)
+    good = meas_ok & (mag >= cfg.min_corr_mag)
+    old_phase = f2c(state.phase)
+    new_phase = torch.where(good, ema_complex(old_phase, pc_inst, alpha=cfg.phase_alpha),
+                            old_phase)
+
+    phase_f = c2f(new_phase)
+    telemetry = Telemetry(
+        lag=lag, residual=lag - new_delay, mag=mag, papr=papr, phase=phase_f,
+        synced=new_synced, rms=rms(sig, dim=-1), gap=gap, gaps=new_gaps,
+    )
+    new_state = PipelineState(
+        delay=new_delay, phase=phase_f, lag=lag, mag=mag, papr=papr, synced=new_synced,
+        hist=c2f(sig), ref_hist=c2f(ref), block_idx=state.block_idx + 1,
+        last_seq=seq, gaps=new_gaps,
+    )
+    return new_state, BlockOutput(telemetry=telemetry,
+                                  aligned_c64=out_raw * new_phase[:, None], ref_c64=out_ref)
 
 
 def _step_fused_u8(cfg, state, sig_u8, ref_u8, update_gate, seq=None):

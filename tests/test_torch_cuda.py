@@ -3,20 +3,25 @@ card. Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine without them it
 runs as ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
-Bars: lag atol 1e-3 samples and z, mag, papr rtol 1e-3 where the pipeline
-uses the measurement (mag >= 0.1; on uncorrelated bytes the lag is
-ill-conditioned, see PERF.md); the same accept/reject decision everywhere;
-under 1e-3 of the D elements, and of the reference spectrum's elements
-rounded to bf16, more than 1 bf16 ulp apart; the reference energy rtol
-1e-3; wire bytes max
-|diff| <= 2 LSB with under 1e-3 of them > 1 LSB.
+Bars: lag atol 1e-3 samples and z, mag, papr (|z|, sum |D|^2, sum |G|^2 on
+the float path) rtol 1e-3 where the pipeline uses the measurement (mag >=
+0.1; on uncorrelated bytes the lag is ill-conditioned, see PERF.md); the
+same accept/reject decision everywhere; under 1e-3 of the D elements, and of
+the reference spectrum's elements rounded to bf16, more than 1 bf16 ulp
+apart; the reference energy rtol 1e-3; wire bytes max |diff| <= 2 LSB with
+under 1e-3 of them > 1 LSB, and the float apply's output within the same
+bars in float units (2/127, 1/127); the four-step FFT max |diff| / max
+|plain| <= 1e-3, and within 3e-2 of torch.fft (tests/test_kernels.py:81).
 """
 
 import pytest
 import torch
 
-from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels
-from coherent_rtlsdr_tpu_torch.ops.convert import u8_to_i8
+from coherent_rtlsdr_tpu_torch.kernels.backend import get_spectral
+from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel, get_fourstep_kernel
+from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels, get_fused_kernels
+from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64, u8_to_i8
+from coherent_rtlsdr_tpu_torch.pipeline.state import PipelineConfig
 from coherent_rtlsdr_tpu_torch.signal import make_truth, synth_capture
 
 MIN_CORR_MAG = 0.1   # PipelineConfig.min_corr_mag
@@ -58,7 +63,7 @@ def test_kernels_match_plain_on_card(kind, m, cuda_device):
     got = k.measure_spec(raw, r_got, e_got)
     want = k.measure_spec_plain(raw, r_want, e_want)
     torch.cuda.synchronize()
-    assert (k.measure_ref_launches, k.measure_launches) == (1, 1)
+    assert (k.measure_ref_launches, k.measure_spec_launches) == (1, 1)
     assert ((e_got - e_want).abs() <= 1e-3 * e_want).all()
     r_ulp = _ulp_apart(r_got.to(torch.bfloat16), r_want.to(torch.bfloat16))
     assert (r_ulp > 1).float().mean().item() < 1e-3
@@ -78,7 +83,7 @@ def test_kernels_match_plain_on_card(kind, m, cuda_device):
     wk = k.apply_spec_i8(*args)
     wp = k.apply_spec_i8_plain(*args)
     torch.cuda.synchronize()
-    assert k.apply_launches == 1
+    assert k.apply_spec_i8_launches == 1
     d = (wk.int() - wp.int()).abs()
     assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
 
@@ -95,3 +100,97 @@ def test_plain_versions_restore_tf32(cuda_device):
             assert torch.backends.cuda.matmul.allow_tf32 is flag
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _planes(raw, ref_raw, m):
+    """Float-path inputs from signed blocks: bf16 block planes [T, N, m/2, m]
+    and the bf16 reference window spectra [T-1, m, m] (plain four-step)."""
+    L = m * m // 2
+    sig = i8_iq_to_c64(raw.reshape(T, N, L, 2)).reshape(T, N, m // 2, m)
+    ref = i8_iq_to_c64(ref_raw.reshape(T, L, 2))
+    R = FFT4StepKernel(m * m, raw.device).fft_plain(torch.cat([ref[:-1], ref[1:]], dim=-1))
+    bf = lambda x: x.to(torch.bfloat16)
+    return bf(sig.real), bf(sig.imag), bf(R.real), bf(R.imag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fourstep_matches_plain_on_card(inverse, cuda_device):
+    m = 64
+    k = FFT4StepKernel(m * m, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.complex(torch.randn((7, m * m), generator=g, device=cuda_device),
+                      torch.randn((7, m * m), generator=g, device=cuda_device))
+    X = torch.fft.fft(x).reshape(7, m, m).transpose(-1, -2)   # natural -> (k2, k1)
+    if inverse:
+        got, want, lib = k.ifft(X), k.ifft_plain(X), x
+    else:
+        got, want, lib = k.fft(x), k.fft_plain(x), X
+    torch.cuda.synchronize()
+    assert k.counts() == dict(fft_launches=int(not inverse), ifft_launches=int(inverse),
+                              fft_plain_runs=int(not inverse), ifft_plain_runs=int(inverse))
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+    assert ((got - lib).abs().max() / lib.abs().max()).item() < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "correlated"])
+def test_float_kernels_match_plain_on_card(kind, cuda_device):
+    m = 64
+    k = FusedPipelineKernels(m * m, cuda_device)
+    pre, pim, rre, rim = _planes(*_blocks(kind, m, cuda_device), m)
+    got = k.measure(pre, pim, rre, rim)
+    want = k.measure_plain(pre, pim, rre, rim)
+    torch.cuda.synchronize()
+    assert (k.measure_launches, k.measure_plain_runs) == (1, 1)
+    eref = (rre.float() ** 2 + rim.float() ** 2).sum((-2, -1))[:, None]
+    mag = lambda out: out[1] / torch.sqrt(out[2] * eref)
+    used = mag(want) >= MIN_CORR_MAG
+    assert torch.equal(mag(got) >= MIN_CORR_MAG, used)
+    assert used.all() if kind == "correlated" else not used.any()
+    for x in got:
+        assert torch.isfinite(x).all()
+    assert ((got[0] - want[0]).abs()[used] <= 1e-3).all()
+    for a, b in zip(got[1:], want[1:]):
+        assert ((a - b).abs() <= 1e-3 * b.abs())[used].all()
+
+    adv = torch.linspace(-40, 40, (T - 1) * N, device=cuda_device).reshape(T - 1, N)
+    yk = k.apply(pre, pim, adv)
+    yp = k.apply_plain(pre, pim, adv)
+    torch.cuda.synchronize()
+    assert (k.apply_launches, k.apply_plain_runs) == (1, 1)
+    for a, b in zip(yk, yp):
+        assert a.shape == (T - 1, N, m * m // 2)
+        d = (a - b).abs()
+        assert d.max().item() <= 2 / 127 and (d > 1 / 127).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["xla", "mxu", "pallas", "fused"])
+def test_backends_run_on_card_without_plain_paths(impl, cuda_device):
+    """Each backend of get_spectral on the card, prepare -> measure ->
+    correct: "pallas" launches the four-step kernel (2 forward, 2 inverse),
+    "fused" the reference transform and the float measure/apply kernels,
+    and no plain version runs."""
+    m, L = 64, 2048
+    method = "phase_zoom" if impl == "fused" else "phase_slope"
+    cfg = PipelineConfig(n_channels=N, block_len=L, fft_impl=impl, lag_method=method)
+    fk, kk = get_fourstep_kernel(m * m, cuda_device), get_fused_kernels(m * m, cuda_device)
+    raw, ref_raw = _blocks("correlated", m, cuda_device)
+    sig = i8_iq_to_c64(raw.reshape(T, N, L, 2))
+    ref = i8_iq_to_c64(ref_raw.reshape(T, L, 2))
+    sp = get_spectral(cfg, m * m, cuda_device)
+    fk.reset_counts()
+    kk.reset_counts()
+    ctx = sp.prepare(sig, ref)
+    est = sp.measure(ctx, method)
+    y = sp.correct(ctx, est.lag)
+    torch.cuda.synchronize()
+    assert y.shape == (T - 1, N, L) and torch.isfinite(torch.view_as_real(y)).all()
+    assert (est.mag > 0.5).all()
+    want_fft = dict(fft_launches=2, ifft_launches=2) if impl == "pallas" else (
+        dict(fft_launches=1) if impl == "fused" else {})
+    want_fused = dict(measure_launches=1, apply_launches=1) if impl == "fused" else {}
+    assert fk.counts() == dict.fromkeys(fk.counts(), 0) | want_fft
+    assert kk.counts() == dict.fromkeys(kk.counts(), 0) | want_fused

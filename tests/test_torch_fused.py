@@ -25,6 +25,7 @@ from coherent_rtlsdr_tpu.kernels.fft4step import FFT4Step as JaxFFT4Step
 from coherent_rtlsdr_tpu.kernels.pallas_fused import FusedPipelineKernels as JaxKernels
 from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 from coherent_rtlsdr_tpu_torch.kernels.fft4step import FFT4Step
+from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel
 from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels, get_fused_kernels
 
 W = 4096
@@ -105,12 +106,11 @@ def test_measure_matches_jax(kind, jax_measure):
     raw, ref_raw = _stream_bytes(kind, seed=11)
     j = [np.asarray(x.astype(jnp.float32)) for x in jax_measure(jnp.asarray(raw),
                                                                   jnp.asarray(ref_raw))]
-    k = FusedPipelineKernels(W)
+    k = FusedPipelineKernels(W, "cpu")
     t = [x.float().numpy() for x in k.measure_i8_spec(torch.from_numpy(raw),
                                                       torch.from_numpy(ref_raw))]
-    assert k.counts() == dict(measure_ref_launches=0, measure_launches=0, apply_launches=0,
-                              measure_ref_plain_runs=1, measure_plain_runs=1,
-                              apply_plain_runs=0)
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(measure_ref_plain_runs=1,
+                                                            measure_spec_plain_runs=1)
     assert t[0].shape == (T - 1, N) and t[5].shape == (T - 1, N, M, M)
     _assert_measure_close(t, j)
     used = j[3] >= MIN_CORR_MAG
@@ -132,9 +132,9 @@ def test_apply_matches_jax(kind, jax_kernels, jax_measure):
                                             jnp.asarray(pre), jnp.asarray(pim))
     d = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
          for x in jd[5:]]
-    k = FusedPipelineKernels(W)
+    k = FusedPipelineKernels(W, "cpu")
     wt = k.apply_spec_i8(*d, torch.from_numpy(adv), torch.from_numpy(pre), torch.from_numpy(pim))
-    assert (k.apply_plain_runs, k.apply_launches) == (1, 0)
+    assert (k.apply_spec_i8_plain_runs, k.apply_spec_i8_launches) == (1, 0)
     assert wt.dtype == torch.int8 and tuple(wt.shape) == (T - 1, N, M // 2, 2 * M)
     _assert_wire_close(wt.numpy(), np.asarray(wj))
 
@@ -142,7 +142,7 @@ def test_apply_matches_jax(kind, jax_kernels, jax_measure):
 def test_fft4step_matches_jax():
     rng = np.random.default_rng(14)
     x = ((rng.standard_normal((2, W)) + 1j * rng.standard_normal((2, W))) * 0.3).astype(np.complex64)
-    jf, tf = JaxFFT4Step(W), FFT4Step(W)
+    jf, tf = JaxFFT4Step(W), FFT4Step(W, "cpu")
     Xj = np.array(jf.fft(jnp.asarray(x)))
     Xt = tf.fft(torch.from_numpy(x)).numpy()
     assert Xt.shape == (2, M, M)
@@ -166,7 +166,7 @@ def test_get_fused_kernels_is_one_instance_per_device():
 def test_cuda_wrapper_rejects_unsupported_sizes():
     # m = 256 (W = 65536) has a plain version but no CUDA kernel yet; the
     # wrapper refuses it before touching a device.
-    k = FusedPipelineKernels(65536)
+    k = FusedPipelineKernels(65536, "cpu")
     raw = torch.zeros((2, 1, 128, 512), dtype=torch.int8)
     with pytest.raises(ValueError, match="m in"):
         fused_cuda.measure_ref(k, raw[:, 0])
@@ -175,8 +175,16 @@ def test_cuda_wrapper_rejects_unsupported_sizes():
     d = torch.zeros((1, 1, 256, 256), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="m in"):
         fused_cuda.apply_spec_i8(k, d, d, *(torch.zeros((1, 1)),) * 3)
+    planes = torch.zeros((2, 1, 128, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="m in"):
+        fused_cuda.measure_planes(k, planes, planes, d[0], d[0])
+    with pytest.raises(ValueError, match="m in"):
+        fused_cuda.apply_planes(k, planes, planes, torch.zeros((1, 1)))
+    fk = FFT4StepKernel(65536, "cpu")
+    with pytest.raises(ValueError, match="m in"):
+        fused_cuda.fourstep(fk, torch.zeros((1, 256, 256), dtype=torch.complex64), False)
     with pytest.raises(ValueError):
-        FusedPipelineKernels(4000)
+        FusedPipelineKernels(4000, "cpu")
 
 
 def test_no_fallback_without_the_card(monkeypatch, tmp_path):
@@ -187,11 +195,23 @@ def test_no_fallback_without_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(fused_cuda, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fused_cuda.build()
-    k = FusedPipelineKernels(W)
+    k = FusedPipelineKernels(W, "cpu")
     meta = torch.empty((T, N, M // 2, 2 * M), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="meta"):
         k.measure_i8_spec(meta, meta[:, 0])
     d = torch.empty((T - 1, N, M, M), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="meta"):
         k.apply_spec_i8(d, d, *(torch.empty((T - 1, N), device="meta"),) * 3)
+    planes = torch.empty((T, N, M // 2, M), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        k.measure(planes, planes, d[:, 0], d[:, 0])
+    with pytest.raises(ValueError, match="meta"):
+        k.apply(planes, planes, torch.empty((T - 1, N), device="meta"))
     assert set(k.counts().values()) == {0}
+    fk = FFT4StepKernel(W, "cpu")
+    x = torch.empty((2, W), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        fk.fft(x)
+    with pytest.raises(ValueError, match="meta"):
+        fk.ifft(x.reshape(2, M, M))
+    assert set(fk.counts().values()) == {0}

@@ -46,7 +46,7 @@ def test_tables_bit_equal(m):
 
 def test_freq_grids_match_jax():
     jf = jfft.FFT4Step(4096)
-    tf = tfft.FFT4Step(4096)
+    tf = tfft.FFT4Step(4096, "cpu")
     np.testing.assert_array_equal(np.asarray(jf.freq_index_grid()), tf.freq_index_grid().numpy())
     np.testing.assert_array_equal(np.asarray(jf.signed_freq_grid()), tf.signed_freq_grid().numpy())
     for n in (4096, 16384, 65536, 1024, 4000):
@@ -156,7 +156,7 @@ def _leaves(s):
 
 def test_state_numpy_round_trip_is_exact():
     js = _jax_state(np.random.default_rng(3))
-    ts = tstate.state_from_numpy(js)
+    ts = tstate.state_from_numpy(js, "cpu")
     assert ts.last_seq.dtype == torch.int64 and int(ts.last_seq[1]) == 2**32 - 1
     back = tstate.state_to_numpy(ts)
     for name, a in _leaves(js).items():
@@ -166,7 +166,7 @@ def test_state_numpy_round_trip_is_exact():
 
 def test_pack_state_matches_jax_and_round_trips():
     js = _jax_state(np.random.default_rng(4))
-    ts = tstate.state_from_numpy(js)
+    ts = tstate.state_from_numpy(js, "cpu")
     tpacked = tstate.pack_state(ts)
     for a, b in zip(jstate.pack_state(js), tpacked):
         assert str(b.dtype).split(".")[-1] == str(np.asarray(a).dtype), (a.dtype, b.dtype)
@@ -196,7 +196,7 @@ def test_init_state_matches_jax_layout():
     for L in (2048, 8192):
         jcfg = jstate.PipelineConfig(n_channels=3, block_len=L, fft_impl="fused")
         tcfg = tstate.PipelineConfig(n_channels=3, block_len=L, fft_impl="fused")
-        back = tstate.state_to_numpy(tstate.init_state(tcfg))
+        back = tstate.state_to_numpy(tstate.init_state(tcfg, "cpu"))
         for name, a in _leaves(jstate.init_state(jcfg)).items():
             assert back[name].dtype == a.dtype and back[name].shape == a.shape, name
             np.testing.assert_array_equal(back[name], a, err_msg=name)

@@ -88,7 +88,7 @@ def test_step_matches_jax_block_by_block(stream, jax_step):
     jcfg, _ = jax_step
     seqs = _seqs(10, 3, start=2**32 - 4)   # crosses 2^31.. and wraps at 2^32
     cfg = PipelineConfig(n_channels=3, block_len=L, **FUSED)
-    jstate, tstate = _compare_steps(jax_step, jpipe.init_state(jcfg), init_state(cfg),
+    jstate, tstate = _compare_steps(jax_step, jpipe.init_state(jcfg), init_state(cfg, "cpu"),
                                     sig, ref, seqs, range(10))
     assert tstate.synced.all() and int(tstate.block_idx) == 10
 
@@ -101,7 +101,7 @@ def test_step_from_jax_midstream_state(stream, jax_step):
     jstate = jpipe.init_state(jcfg)
     for t in range(5):
         jstate, _ = jstep(jstate, jnp.asarray(sig[t]), jnp.asarray(ref[t]), jnp.asarray(seqs[t]))
-    tstate = state_from_numpy(jstate)
+    tstate = state_from_numpy(jstate, "cpu")
     _compare_steps(jax_step, jstate, tstate, sig, ref, seqs, range(5, 8))
 
 
@@ -111,7 +111,7 @@ def test_step_gap_policy():
     truth = make_truth(3, seed=8, max_delay=10.0, snr_db=30.0)
     cap = synth_capture(torch.Generator().manual_seed(8), truth, n_blocks=8, block_len=L)
     cfg = PipelineConfig(n_channels=3, block_len=L, **FUSED)
-    state = init_state(cfg)
+    state = init_state(cfg, "cpu")
     seq = np.zeros(3, np.uint32)
     for t in range(8):
         seq = seq + 1
@@ -133,7 +133,7 @@ def test_packed_runners_equal_the_step_loop(stream):
     sig, ref = (torch.from_numpy(x) for x in stream)
     cfg = PipelineConfig(n_channels=3, block_len=L, **FUSED)
     seqs = _seqs(8, 3, start=2**32 - 3)
-    state = init_state(cfg)
+    state = init_state(cfg, "cpu")
     wires, telems = [], []
     for t in range(8):
         state, out = step(cfg, state, sig[t], ref[t], True, seq=seqs[t])
@@ -141,7 +141,7 @@ def test_packed_runners_equal_the_step_loop(stream):
         telems.append(out.telemetry)
 
     run = make_packed_scan_runner(cfg)
-    pstate = pack_state(init_state(cfg))
+    pstate = pack_state(init_state(cfg, "cpu"))
     got_w, got_t = [], []
     for c in range(2):   # two calls of K = 4 blocks
         blk = slice(4 * c, 4 * c + 4)
@@ -156,11 +156,11 @@ def test_packed_runners_equal_the_step_loop(stream):
     assert torch.equal(torch.cat(got_t)[:, :, 0], torch.stack([t.lag for t in telems]))
 
     one = make_packed_step(cfg)
-    p1 = pack_state(init_state(cfg))
+    p1 = pack_state(init_state(cfg, "cpu"))
     p1, w1, wr1, tel1 = one(p1, sig[0], ref[0], True, seqs[0])
     assert torch.equal(w1, wires[0]) and tuple(tel1.shape) == (3, 10)
 
-    s2, w2, wr2, tel2 = run_capture(cfg, init_state(cfg), sig[:8], ref[:8])
+    s2, w2, wr2, tel2 = run_capture(cfg, init_state(cfg, "cpu"), sig[:8], ref[:8])
     assert torch.equal(w2, torch.stack(wires)) and tuple(tel2.lag.shape) == (8, 3)
 
 
@@ -197,20 +197,21 @@ def test_synth_capture_truth_is_recovered():
 
 
 def test_unported_paths_raise():
-    cfg = PipelineConfig(n_channels=2, block_len=L)   # fft_impl="xla"
-    x = torch.zeros((2, 2, L, 2), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        align_offline(cfg, x, x[:, 0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(cfg, init_state(PipelineConfig(n_channels=2, block_len=L, **FUSED)),
-             x[0], x[0, 0], True)
-    f32 = PipelineConfig(n_channels=2, block_len=L, mxu_precision="f32", **FUSED)
-    with pytest.raises(NotImplementedError, match="mxu_precision.*ROADMAP"):
-        align_offline(f32, x, x[:, 0])
-    with pytest.raises(NotImplementedError, match="mxu_precision.*ROADMAP"):
-        step(f32, init_state(f32), x[0], x[0, 0], True)
-    bad = PipelineConfig(n_channels=2, block_len=L, fft_impl="fused")
-    with pytest.raises(ValueError, match="phase_zoom"):
-        step(bad, init_state(bad), x[0], x[0, 0], True)
+    """What the port does not run raises instead of running something else:
+    ppm != 0 in the synthesizer (it needs the Farrow interpolator), a lag
+    method the backend does not have, a length the four-step cannot take."""
     with pytest.raises(NotImplementedError, match="Farrow"):
         synth_capture(torch.Generator(), make_truth(2, max_ppm=1.0), 2, L)
+    x = torch.zeros((2, 2, L, 2), dtype=torch.uint8)
+    bad = PipelineConfig(n_channels=2, block_len=L, fft_impl="fused")   # phase_slope
+    with pytest.raises(ValueError, match="phase_zoom"):
+        step(bad, init_state(bad, "cpu"), x[0], x[0, 0], True)
+    parab = PipelineConfig(n_channels=2, block_len=L, fft_impl="pallas", lag_method="parabolic")
+    with pytest.raises(ValueError, match="unsupported method"):
+        align_offline(parab, x, x[:, 0])
+    with pytest.raises(ValueError, match="unknown fractional-lag method"):
+        align_offline(PipelineConfig(n_channels=2, block_len=L, lag_method="nope"), x, x[:, 0])
+    odd = PipelineConfig(n_channels=2, block_len=1000, fft_impl="mxu")
+    with pytest.raises(ValueError, match="square"):
+        align_offline(odd, torch.zeros((2, 2, 1000, 2), dtype=torch.uint8),
+                      torch.zeros((2, 1000, 2), dtype=torch.uint8))
