@@ -38,17 +38,30 @@ kernels):
      and ``torch.fft``, and the float measure/apply kernels against theirs,
      at the offline shapes, timed.
 
+The recompute i8 pair (``measure_i8`` -> ``apply_i8``) and the roofline
+probe with its block copy:
+
+ 14. the recompute kernels against their plain versions at m = 128 (N = 21,
+     T = 5) and m = 64, on random and correlated bytes; then the pair
+     driven at the offline shapes (bytes -> measure_i8 -> advance = lag,
+     phase factor conj(z)/|z| -> apply_i8), by its launch counts, held to
+     the handoff pair (the JAX package's contract,
+     tests/test_kernels.py:433-450) and timed against its plain versions;
+ 15. the roofline probe (``coherent_rtlsdr_tpu_torch.tools.probe_roofline``)
+     at full size, by its launch counts, then the block copy held bit-equal
+     to its input and timed against its plain version and ``x.clone()``.
+
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the card's name and power limit and a
-JSON summary of the kernels (times, launches, errors, and the bound: the
-larger of bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s); the
-last line is ``{"ok": true, "device": {...}}``. Needs a CUDA device and the
-repository's package next to this file.
+JSON summary of the nine kernels (times, launches, errors, and the bound
+from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and bf16
+operations over 989 TFLOP/s); the last line is ``{"ok": true, "device":
+{...}}``. Needs a CUDA device and the repository's package next to this
+file.
 """
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -80,21 +93,14 @@ GEN_PHASE_MAX_DEG = 3.0  # max |residual phase|, degrees
 N_CH, L = 21, 8192
 T_OFFLINE, K_STREAM, CALLS_STREAM = 256, 32, 4
 GENERIC = dict(fft_impl="pallas", lag_method="phase_slope")
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s.
-HBM_BYTES_S = 3.35e12
-BF16_FLOPS = 989e12
+# The recompute pair against the handoff pair (tests/test_kernels.py:433-450).
+HANDOFF_SCALAR_TOL = 1e-6   # rtol and atol of the five scalars
+HANDOFF_WIRE_NZ_SHARE = 0.35   # share of wire bytes that differ at all
+RECOMPUTE_PHASE_MAX_DEG = 5.0   # wire block against the reference, per window
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn):
@@ -136,7 +142,8 @@ def ulp_apart(a, b):
 
 
 def compare_measure(got, want, where):
-    """Hold the kernel's measure outputs to the plain version's.
+    """Hold the kernel's measure outputs (five scalars, then the stored
+    spectra where the kernel stores them) to the plain version's.
 
     The scalars are held where the pipeline uses the measurement (mag >=
     MIN_CORR_MAG). On uncorrelated bytes the phase-zoom sums nearly cancel
@@ -144,7 +151,7 @@ def compare_measure(got, want, where):
     (measured on the H100), so there only the accept/reject decision, the
     stored spectra and finiteness are held, and the spread is reported."""
     names = ("lag", "z_re", "z_im", "mag", "papr")
-    for name, x in zip(names, got[:5]):
+    for name, x in zip(names, got):
         if not torch.isfinite(x).all():
             raise AssertionError(f"{where}: non-finite {name}")
     used = want[3] >= MIN_CORR_MAG
@@ -164,7 +171,7 @@ def compare_measure(got, want, where):
             if used.any() else 0.0
         if not rel[name] <= SCALAR_RTOL:
             raise AssertionError(f"{where}: {name} rel err {rel[name]} > {SCALAR_RTOL}")
-    for name, g, w in (("dre", got[5], want[5]), ("dim", got[6], want[6])):
+    for name, g, w in zip(("dre", "dim"), got[5:], want[5:]):
         share = (ulp_apart(g, w) > 1).float().mean().item()
         rel[f"{name}_share_gt1ulp"] = share
         if not share < D_ULP_SHARE:
@@ -255,13 +262,6 @@ def launched_only_kernels(counts, n, where):
                                apply_spec_i8_launches=n), where)
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the bf16 operations over the tensor-core peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def timed_interleaved(fns, bases, variants):
     """Median ms of each ``fns[base + variant]`` over four runs in turns
     (first, second, second, first variant), after a warm-up of each."""
@@ -290,6 +290,19 @@ def synth_raw(n_blocks, block_len, n_ch, seed, dev):
     return raw, ref_raw, cap
 
 
+def small_blocks(m, g, dev):
+    """The kernel-vs-plain inputs at m (N = 21, T = 5): random bytes drawn
+    from ``g``, and the synthesizer's correlated bytes (seed m)."""
+    return {
+        "random": (
+            torch.randint(-128, 128, (5, N_CH, m // 2, 2 * m), generator=g, device=dev,
+                          dtype=torch.int8),
+            torch.randint(-128, 128, (5, m // 2, 2 * m), generator=g, device=dev,
+                          dtype=torch.int8)),
+        "correlated": synth_raw(5, m * m // 2, N_CH, seed=m, dev=dev)[:2],
+    }
+
+
 def phase_kernels(dev):
     """Phase 2: kernel against plain version at m = 128 and m = 64."""
     from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels
@@ -298,15 +311,7 @@ def phase_kernels(dev):
     for m, n_ch in ((128, N_CH), (64, N_CH)):
         k = FusedPipelineKernels(m * m, dev)
         g = torch.Generator(device=dev).manual_seed(m)
-        inputs = {
-            "random": (
-                torch.randint(-128, 128, (5, n_ch, m // 2, 2 * m), generator=g, device=dev,
-                              dtype=torch.int8),
-                torch.randint(-128, 128, (5, m // 2, 2 * m), generator=g, device=dev,
-                              dtype=torch.int8)),
-            "correlated": synth_raw(5, m * m // 2, n_ch, seed=m, dev=dev)[:2],
-        }
-        for kind, (raw, ref_raw) in inputs.items():
+        for kind, (raw, ref_raw) in small_blocks(m, g, dev).items():
             where = f"m={m} {kind}"
             errs, want = hold_measure(k, raw, ref_raw, where)
             adv = (torch.rand((4, n_ch), generator=g, device=dev) - 0.5) * 80.0
@@ -413,15 +418,7 @@ def phase_generic_kernels(dev):
         x = torch.complex(torch.randn((2 * N_CH, m * m), generator=g, device=dev),
                           torch.randn((2 * N_CH, m * m), generator=g, device=dev))
         out.append(dict(kernel="fourstep", m=m, B=2 * N_CH, **hold_fourstep(fk, x, f"m={m}")))
-        inputs = {
-            "random": (
-                torch.randint(-128, 128, (5, N_CH, m // 2, 2 * m), generator=g, device=dev,
-                              dtype=torch.int8),
-                torch.randint(-128, 128, (5, m // 2, 2 * m), generator=g, device=dev,
-                              dtype=torch.int8)),
-            "correlated": synth_raw(5, m * m // 2, N_CH, seed=m, dev=dev)[:2],
-        }
-        for kind, (raw, ref_raw) in inputs.items():
+        for kind, (raw, ref_raw) in small_blocks(m, g, dev).items():
             where = f"float m={m} {kind}"
             planes = planes_from_i8(raw, ref_raw, fk)
             errs = hold_float_measure(k, planes, where)
@@ -429,6 +426,72 @@ def phase_generic_kernels(dev):
             errs.update(hold_float_apply(k, planes, adv, where))
             out.append(dict(kernel="measure/apply", m=m, N=N_CH, T=5, inputs=kind, **errs))
     return out
+
+
+def hold_recompute(k, raw, ref_raw, args, where):
+    """The recompute kernels against their plain versions: fused_measure_i8
+    on the reference kernel's spectra on both sides (so it is held alone,
+    as in hold_measure), fused_apply_i8 on the same bytes and arguments."""
+    got = k.measure_i8(raw, ref_raw)
+    want = k.measure_i8_plain(raw, *k.measure_ref(ref_raw))
+    torch.cuda.synchronize()
+    errs = {}
+    errs["lag_max_abs_err"], errs["rel_err"] = compare_measure(got, want, where)
+    errs["mag_min"] = want[3].min().item()
+    mx, share = compare_wire(k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args), where)
+    errs.update(wire_max_lsb=mx, wire_share_gt1=share)
+    return errs
+
+
+def phase_recompute_kernels(dev):
+    """Phase 14, first part: the recompute kernels against their plain
+    versions at m = 128 and m = 64, with advances of large integer part."""
+    from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels
+
+    out = []
+    for m in (128, 64):
+        k = FusedPipelineKernels(m * m, dev)
+        g = torch.Generator(device=dev).manual_seed(m + 2)
+        for kind, (raw, ref_raw) in small_blocks(m, g, dev).items():
+            adv = (torch.rand((4, N_CH), generator=g, device=dev) - 0.5) * 80.0
+            adv[0, 0], adv[0, 1] = -1500.25, 1023.5
+            ph = torch.rand((4, N_CH), generator=g, device=dev) * 6.283185307179586
+            errs = hold_recompute(k, raw, ref_raw, (adv, torch.cos(ph), torch.sin(ph)),
+                                  f"recompute m={m} {kind}")
+            out.append(dict(m=m, N=N_CH, T=5, inputs=kind, **errs))
+    return out
+
+
+def hold_handoff_contract(rec, wire_r, spec, wire_h):
+    """The recompute pair against the handoff pair on the same bytes: the
+    five scalars equal within HANDOFF_SCALAR_TOL, the wire bytes within the
+    wire bars and under HANDOFF_WIRE_NZ_SHARE of them different at all
+    (the bf16 rounding of the stored D)."""
+    out = {}
+    for name, a, b in zip(("lag", "z_re", "z_im", "mag", "papr"), rec, spec):
+        err = (a - b).abs()
+        out[f"{name}_max_abs_diff"] = err.max().item()
+        if not (err <= HANDOFF_SCALAR_TOL * (1 + b.abs())).all():
+            raise AssertionError(f"handoff contract: {name} differs by {err.max().item()}")
+    mx, share = compare_wire(wire_r, wire_h, "handoff contract")
+    nz = (wire_r != wire_h).float().mean().item()
+    if not nz < HANDOFF_WIRE_NZ_SHARE:
+        raise AssertionError(f"handoff contract: {nz} of the wire bytes differ")
+    out.update(wire_max_lsb=mx, wire_share_gt1=share, wire_share_nonzero=nz)
+    return out
+
+
+def wire_phase_deg(wire, ref_raw):
+    """Per (window, channel): the phase (degrees) of the wire block's
+    correlation with the reference's overlap-save centre half."""
+    T1, N = wire.shape[:2]
+    y = wire.reshape(T1, N, -1, 2).float()
+    r = ref_raw.reshape(T1 + 1, -1, 2).float()
+    half = r.shape[1] // 2
+    rc = torch.cat([r[:-1, half:], r[1:, :half]], dim=1)
+    z = (torch.complex(y[..., 0], y[..., 1])
+         * torch.complex(rc[..., 0], -rc[..., 1])[:, None]).sum(-1)
+    return torch.rad2deg(torch.angle(z))
 
 
 def main():
@@ -449,6 +512,8 @@ def main():
         pack_state,
         unpack_state,
     )
+    from coherent_rtlsdr_tpu_torch.tools import cost_model
+    from coherent_rtlsdr_tpu_torch.tools.probe_roofline import smi_line
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -748,38 +813,99 @@ def main():
     emit(dict(phase="generic_kernel_times", card=smi, N=N_CH, L=L, T=T_OFFLINE, B=B, ms=ms13,
               runs=runs13, kernel_vs_plain=errs13))
 
-    # The kernels line. launches: the main path's runs (phases 3 and 5 for
-    # the i8 kernels; 9, 11 and 12 for the four-step; 12 for the float
-    # kernels). max_abs_err: the largest kernel-vs-plain difference seen
-    # (R for the reference kernel, lag in samples for the measure kernels,
-    # wire LSB for the i8 apply, |diff| of the spectrum for the four-step
-    # and of the samples for the float apply). ms, plain_ms, library_ms:
-    # medians at the offline shapes (phases 6 and 13). bound_ms: the larger
-    # of the bytes each function must move over 3.35 TB/s and its matrix
-    # products (8 m^3 operations a complex m x m x m product) over the bf16
-    # peak, at those shapes.
-    launches = {c: counts_offline[c] + counts_stream[c] for c in counts_offline}
-    worst = lambda key: max(errs_step[key], errs6[key])
-    T1, W = T_OFFLINE - 1, 2 * L
-    m3 = round(W ** 0.5) ** 3
-    nwin = T1 * N_CH
-    bounds = {
-        "measure_ref": bound(T_OFFLINE * W + T1 * W * 8 + T1 * 4, T1 * 16 * m3),
-        "measure_spec": bound(T_OFFLINE * N_CH * W + T1 * W * 8 + T1 * 4 + 5 * nwin * 4
-                              + 2 * nwin * W * 2, nwin * 16 * m3),
-        "apply_spec_i8": bound(2 * nwin * W * 2 + 3 * nwin * 4 + nwin * W, nwin * 12 * m3),
-        "fourstep": bound(2 * B * W * 8, B * 16 * m3),
-        "measure": bound(2 * T_OFFLINE * N_CH * (W // 2) * 2 + 2 * T1 * W * 2 + 4 * nwin * 4,
-                         nwin * 16 * m3),
-        "apply": bound(2 * T_OFFLINE * N_CH * (W // 2) * 2 + nwin * 4 + 2 * nwin * (W // 2) * 4,
-                       nwin * 28 * m3),
-    }
-    tpu = "coherent_rtlsdr_tpu/kernels/"
-    src = "coherent_rtlsdr_tpu_torch/csrc/"
+    # --- The recompute pair and the roofline probe. --------------------
+    from coherent_rtlsdr_tpu_torch.kernels.copy import get_block_copy
+    from coherent_rtlsdr_tpu_torch.ops.phase import unit_phasor
+    from coherent_rtlsdr_tpu_torch.tools import probe_roofline
 
-    def entry(name, source, replaces, key, n_launch, err, ms_k, ms_p, lib=None, **extra):
-        b_ms, b_by = bounds[key]
-        return dict(name=name, route="cuda", source=src + source, replaces=tpu + replaces,
+    # 14. The recompute kernels against their plain versions, then the pair
+    # driven at the offline shapes on the phase 3 bytes.
+    emit(dict(phase="recompute_kernel_vs_plain", card=smi, results=phase_recompute_kernels(dev)))
+    k.reset_counts()
+    rec = k.measure_i8(raw, ref_raw)
+    pc = unit_phasor(torch.complex(rec[1], -rec[2]))
+    p_re, p_im = pc.real.contiguous(), pc.imag.contiguous()
+    wire_r = k.apply_i8(raw, rec[0], p_re, p_im)
+    torch.cuda.synchronize()
+    counts_rec = k.counts()
+    launched_only(counts_rec, dict(measure_ref_launches=1, measure_i8_launches=1,
+                                   apply_i8_launches=1), "recompute pair")
+    rec_deg = wire_phase_deg(wire_r, ref_raw)
+    if not (wire_r.shape == (T_OFFLINE - 1, *raw.shape[1:])
+            and all(torch.isfinite(x).all() for x in rec) and rec[3].min().item() > 0.5
+            and rec_deg.abs().max().item() <= RECOMPUTE_PHASE_MAX_DEG):
+        raise AssertionError(f"recompute pair output wrong: min mag {rec[3].min().item()}, "
+                             f"max |phase| {rec_deg.abs().max().item()} deg")
+    spec = k.measure_i8_spec(raw, ref_raw)
+    contract = hold_handoff_contract(rec, wire_r, spec[:5],
+                                     k.apply_spec_i8(spec[5], spec[6], rec[0], p_re, p_im))
+    del spec
+    errs14 = hold_recompute(k, raw, ref_raw, (rec[0], p_re, p_im), "offline shapes")
+    R, eref = k.measure_ref(ref_raw)
+    ms14, runs14 = timed_interleaved({
+        "measure_i8": lambda: fused_cuda.measure_i8(k, raw, R, eref),
+        "measure_i8_plain": lambda: k.measure_i8_plain(raw, R, eref),
+        "apply_i8": lambda: k.apply_i8(raw, rec[0], p_re, p_im),
+        "apply_i8_plain": lambda: k.apply_i8_plain(raw, rec[0], p_re, p_im),
+    }, ("measure_i8", "apply_i8"), ("_plain", ""))
+    emit(dict(phase="recompute_pair", card=smi, N=N_CH, L=L, T=T_OFFLINE,
+              launches=counts_rec, mag_min=rec[3].min().item(),
+              wire_phase_deg_max=rec_deg.abs().max().item(),
+              wire_phase_deg_rms=rec_deg.pow(2).mean().sqrt().item(),
+              handoff_contract=contract, kernel_vs_plain=errs14, ms=ms14, runs=runs14))
+    del R, eref, wire_r
+
+    # 15. The roofline probe at full size, then the block copy held
+    # bit-equal and timed.
+    copier = get_block_copy()
+    copier.reset_counts()
+    k.reset_counts()
+    probe = probe_roofline.run(dev)
+    counts_probe = {**copier.counts(), **k.counts()}
+    probed = [v for key in ("copy_GBps", "torch_copy_GBps", "xor_GBps")
+              for v in probe[key].values()]
+    probed += [probe["copy_nc7_GBps"], probe["matmul_TFLOPs"]]
+    probed += [f[p]["ms"] for f in probe["fused"] for p in ("handoff", "recompute")]
+    if not (counts_probe == dict.fromkeys(counts_probe, 0) | probe["launches"]
+            and not any(name.endswith("_plain_runs") for name in probe["launches"])
+            and all(probe["launches"].get(f"{name}_launches", 0) > 0
+                    for name in ("copy", "measure_ref", "measure_spec", "apply_spec_i8",
+                                 "measure_i8", "apply_i8"))
+            and all(v > 0 and v == v for v in probed)):
+        raise AssertionError(f"roofline probe: launches {counts_probe}, probe {probe}")
+    copy_equal = {}
+    for nc in (1, 7):
+        y = copier.copy(raw, nc)
+        copy_equal[f"nc{nc}"] = torch.equal(y, raw) and torch.equal(y, copier.copy_plain(raw))
+    torch.cuda.synchronize()
+    if not all(copy_equal.values()):
+        raise AssertionError(f"copy_blocks is not bit-equal to its input: {copy_equal}")
+    ms15, runs15 = timed_interleaved({
+        "copy": lambda: copier.copy(raw, 1), "copy_plain": lambda: copier.copy_plain(raw),
+        "copy_lib": raw.clone}, ("copy",), ("_plain", "", "_lib"))
+    emit(dict(phase="roofline_probe", card=smi, probe=probe, launches=counts_probe,
+              copy_bit_equal=copy_equal, copy_shape=list(raw.shape), ms=ms15, runs=runs15))
+
+    # The kernels line. launches: the main path's runs (phases 3, 5, 14 and
+    # 15 for the i8 kernels; 9, 11 and 12 for the four-step; 12 for the
+    # float kernels; 15 for the copy). max_abs_err: the largest
+    # kernel-vs-plain difference seen (R for the reference kernel, lag in
+    # samples for the i8 measure kernels, wire LSB for the i8 applies,
+    # |diff| of the spectrum for the four-step and of the samples for the
+    # float apply, bytes for the copy). ms, plain_ms, library_ms: medians at
+    # the offline shapes (phases 6, 13, 14 and 15). bound_ms, bound_by:
+    # tools/cost_model.py at those shapes.
+    launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
+                for c in counts_offline}
+    worst = lambda key: max(errs_step[key], errs6[key])
+    m = round((2 * L) ** 0.5)
+    shape = (T_OFFLINE, N_CH, m)
+    src = "coherent_rtlsdr_tpu_torch/csrc/"
+    tpu = "coherent_rtlsdr_tpu/kernels/"
+
+    def entry(name, source, replaces, cost, n_launch, err, ms_k, ms_p, lib=None, **extra):
+        b_ms, b_by = cost_model.bound(cost)
+        return dict(name=name, route="cuda", source=src + source, replaces=replaces,
                     launches=n_launch, max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib, **extra)
 
@@ -788,25 +914,34 @@ def main():
                          + counts_fsp["fft_launches"])
     print(smi, flush=True)
     emit({"kernels": [
-        entry("fused_measure_ref", "fused_measure.cu", "pallas_fused.py:356", "measure_ref",
-              launches["measure_ref_launches"], worst("R_max_abs_err"), ms["measure_ref"],
-              ms["measure_ref_plain"]),
-        entry("fused_measure_i8_spec", "fused_measure.cu", "pallas_fused.py:338",
-              "measure_spec", launches["measure_spec_launches"], worst("lag_max_abs_err"),
-              ms["measure"], ms["measure_plain"]),
-        entry("fused_apply_spec_i8", "fused_apply.cu", "pallas_fused.py:392", "apply_spec_i8",
-              launches["apply_spec_i8_launches"], worst("wire_max_lsb"), ms["apply"],
-              ms["apply_plain"]),
-        entry("fourstep_fft", "fourstep.cu", "pallas_fft.py:32", "fourstep", fourstep_launches,
-              max(errs13["fwd_max_abs_err"], errs13["inv_max_abs_err"]), ms13["fft"],
-              ms13["fft_plain"], ms13["fft_lib"], ms_inverse=ms13["ifft"],
+        entry("fused_measure_ref", "fused_measure.cu", tpu + "pallas_fused.py:356",
+              cost_model.measure_ref(T_OFFLINE, m), launches["measure_ref_launches"],
+              worst("R_max_abs_err"), ms["measure_ref"], ms["measure_ref_plain"]),
+        entry("fused_measure_i8_spec", "fused_measure.cu", tpu + "pallas_fused.py:338",
+              cost_model.measure_i8_spec(*shape), launches["measure_spec_launches"],
+              worst("lag_max_abs_err"), ms["measure"], ms["measure_plain"]),
+        entry("fused_apply_spec_i8", "fused_apply.cu", tpu + "pallas_fused.py:392",
+              cost_model.apply_spec_i8(*shape), launches["apply_spec_i8_launches"],
+              worst("wire_max_lsb"), ms["apply"], ms["apply_plain"]),
+        entry("fused_measure_i8", "fused_measure.cu", tpu + "pallas_fused.py:279",
+              cost_model.measure_i8(*shape), launches["measure_i8_launches"],
+              errs14["lag_max_abs_err"], ms14["measure_i8"], ms14["measure_i8_plain"]),
+        entry("fused_apply_i8", "fused_apply.cu", tpu + "pallas_fused.py:447",
+              cost_model.apply_i8(*shape), launches["apply_i8_launches"],
+              errs14["wire_max_lsb"], ms14["apply_i8"], ms14["apply_i8_plain"]),
+        entry("fourstep_fft", "fourstep.cu", tpu + "pallas_fft.py:32", cost_model.fourstep(B, m),
+              fourstep_launches, max(errs13["fwd_max_abs_err"], errs13["inv_max_abs_err"]),
+              ms13["fft"], ms13["fft_plain"], ms13["fft_lib"], ms_inverse=ms13["ifft"],
               plain_ms_inverse=ms13["ifft_plain"], library_ms_inverse=ms13["ifft_lib"]),
-        entry("fused_measure_planes", "fused_measure.cu", "pallas_fused.py:185", "measure",
-              counts_fsp["measure_launches"], errs13["lag_max_abs_err"], ms13["measure"],
-              ms13["measure_plain"]),
-        entry("fused_apply_planes", "fused_apply.cu", "pallas_fused.py:220", "apply",
-              counts_fsp["apply_launches"], errs13["y_max_abs_err"], ms13["apply"],
-              ms13["apply_plain"]),
+        entry("fused_measure_planes", "fused_measure.cu", tpu + "pallas_fused.py:185",
+              cost_model.measure_planes(*shape), counts_fsp["measure_launches"],
+              errs13["lag_max_abs_err"], ms13["measure"], ms13["measure_plain"]),
+        entry("fused_apply_planes", "fused_apply.cu", tpu + "pallas_fused.py:220",
+              cost_model.apply_planes(*shape), counts_fsp["apply_launches"],
+              errs13["y_max_abs_err"], ms13["apply"], ms13["apply_plain"]),
+        entry("copy_blocks", "probe_copy.cu", "tools/probe_roofline.py:68",
+              cost_model.copy_blocks(*shape), counts_probe["copy_launches"], 0,
+              ms15["copy"], ms15["copy_plain"], ms15["copy_lib"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

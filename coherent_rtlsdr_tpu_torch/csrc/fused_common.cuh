@@ -1,5 +1,5 @@
 // Shared device helpers of the hand-written kernels (fused_measure.cu,
-// fused_apply.cu, fourstep.cu).
+// fused_apply.cu, fourstep.cu; probe_copy.cu needs none of them).
 //
 // Layouts (W = m*m, m in {64, 128}):
 //   * a stream block is int8 [m/2, 2m]: row r holds samples [r*m, (r+1)*m)
@@ -153,6 +153,25 @@ __device__ __forceinline__ void forward_fft(Load load, const float2* __restrict_
       [&](int k, int c) { return F[k * M + c]; },
       d_epi);
   __syncthreads();
+}
+
+// Window loader of the i8 path: rows 0..m/2-1 from the int8 block `top`,
+// rows m/2..m-1 from `top + next`; A = bf16(float(i8) * (1/127)).
+template <int M>
+__device__ __forceinline__ void load_i8(const int8_t* __restrict__ top, size_t next, float2* A) {
+  constexpr float kScale = static_cast<float>(1.0 / 127.0);
+  // 4 bytes (2 samples) per step; each half-window is m*m contiguous bytes.
+  constexpr int kWords = M * M / 4;
+  for (int w = threadIdx.x; w < 2 * kWords; w += kThreads) {
+    const int half = w / kWords;
+    const int wi = w - half * kWords;
+    const char4 b = reinterpret_cast<const char4*>(top + half * next)[wi];
+    const int s = 2 * wi;  // sample index within the half-window
+    const int r = half * (M / 2) + s / M;
+    const int c = s % M;
+    A[r * M + c] = make_float2(bf16_round(b.x * kScale), bf16_round(b.y * kScale));
+    A[r * M + c + 1] = make_float2(bf16_round(b.z * kScale), bf16_round(b.w * kScale));
+  }
 }
 
 // Window loader of the float path: fills A from two half-window bf16 plane

@@ -6,11 +6,14 @@
 //   * _measure_kernel_i8_spec (FusedPipelineKernels.measure_i8_spec): int8
 //     blocks in, five scalars and the stored bf16 window spectrum out, as two
 //     kernels, fused_measure_ref then fused_measure_i8_spec;
+//   * _measure_kernel_i8 (FusedPipelineKernels.measure_i8): the same five
+//     scalars with no spectrum stored, as fused_measure_ref then
+//     fused_measure_i8 (the channel kernel with STORE_D = false);
 //   * _measure_kernel (FusedPipelineKernels.measure): bf16 block planes and
 //     bf16 reference spectra in, four scalars out, no spectrum stored
 //     (fused_measure_planes).
 // Plain PyTorch versions: coherent_rtlsdr_tpu_torch/kernels/fused.py
-// (measure_ref_plain, measure_spec_plain, measure_plain).
+// (measure_ref_plain, measure_spec_plain, measure_i8_plain, measure_plain).
 //
 // Design. One CTA of 256 threads per (window t, channel n). On the TPU one
 // grid step carried the reference spectrum R across its channels; CUDA
@@ -21,7 +24,8 @@
 // four real m^3 products of each transform (2 x 16.8 MFLOP a window at
 // m = 128) run on the SIMT FMA units, so they are compute-bound at ~2 FMA
 // per shared-memory load; the bytes (32 kB of window in, 64 kB of D out on
-// the i8 path, 128 kB of R read from L2) are small beside that. Everything
+// the handoff path and none on the recompute path, 128 kB of R read from
+// L2) are small beside that. Everything
 // between the window and the scalars stays in shared memory, 197,152 bytes
 // at m = 128:
 //   region A (m*m float2):  the window A, then G = D conj(R)
@@ -38,25 +42,6 @@ struct MeasureSmem {
   static constexpr size_t kRegionC = SmemBf16Matrix<M>::kBytes;
   static constexpr size_t kBytes = kRegionA + kRegionC + sizeof(float) * (kThreads / 32);
 };
-
-// Window loader of the i8 path: rows 0..m/2-1 from the int8 block `top`,
-// rows m/2..m-1 from `top + next`; A = bf16(float(i8) * (1/127)).
-template <int M>
-__device__ __forceinline__ void load_i8(const int8_t* __restrict__ top, size_t next, float2* A) {
-  constexpr float kScale = static_cast<float>(1.0 / 127.0);
-  // 4 bytes (2 samples) per step; each half-window is m*m contiguous bytes.
-  constexpr int kWords = M * M / 4;
-  for (int w = threadIdx.x; w < 2 * kWords; w += kThreads) {
-    const int half = w / kWords;
-    const int wi = w - half * kWords;
-    const char4 b = reinterpret_cast<const char4*>(top + half * next)[wi];
-    const int s = 2 * wi;  // sample index within the half-window
-    const int r = half * (M / 2) + s / M;
-    const int c = s % M;
-    A[r * M + c] = make_float2(bf16_round(b.x * kScale), bf16_round(b.y * kScale));
-    A[r * M + c + 1] = make_float2(bf16_round(b.z * kScale), bf16_round(b.w * kScale));
-  }
-}
 
 struct ZoomResult {
   float lag, zre, zim;  // the same values in every thread
@@ -207,7 +192,9 @@ measure_ref_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict_
 }
 
 // Channel mode of the i8 path: one CTA per (t, n) = (blockIdx.y, blockIdx.x).
-template <int M>
+// STORE_D writes D as bf16 to dre_out/dim_out (the handoff pair); without
+// it the stores compile away and the two pointers are not read.
+template <int M, bool STORE_D>
 __global__ void __launch_bounds__(kThreads)
 measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
                const float2* __restrict__ Tw, const float2* __restrict__ R,
@@ -227,15 +214,16 @@ measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
   const int t = blockIdx.y;
   const size_t win = static_cast<size_t>(t) * N + n;
   const float2* Rt = R + static_cast<size_t>(t) * M * M;
-  __nv_bfloat16* Dre = dre_out + win * W;
-  __nv_bfloat16* Dim = dim_out + win * W;
 
-  // Window spectrum D: stored as bf16, and G = D conj(R) kept in float32.
+  // Window spectrum D: stored as bf16 (STORE_D), and G = D conj(R) kept in
+  // float32.
   float esig = 0.f, eg = 0.f;
   forward_fft<M>([&](float2* a) { load_i8<M>(raw + win * W, static_cast<size_t>(N) * W, a); },
                  F, Tw, G, C, [&](int r, int c, float dre, float dim) {
-                   Dre[r * M + c] = __float2bfloat16_rn(dre);
-                   Dim[r * M + c] = __float2bfloat16_rn(dim);
+                   if constexpr (STORE_D) {
+                     dre_out[win * W + r * M + c] = __float2bfloat16_rn(dre);
+                     dim_out[win * W + r * M + c] = __float2bfloat16_rn(dim);
+                   }
                    const float2 rr = Rt[r * M + c];
                    const float gre = dre * rr.x + dim * rr.y;
                    const float gim = dim * rr.x - dre * rr.y;
@@ -321,14 +309,14 @@ int launch_ref(const void* ref_raw, const void* F, const void* Tw, void* R, void
   return cudaGetLastError();
 }
 
-template <int M>
+template <int M, bool STORE_D>
 int launch(const void* raw, const void* F, const void* Tw, const void* R, const void* eref,
            void* lag, void* zre, void* zim, void* mag, void* papr, void* dre, void* dim, int T1,
            int N, void* stream) {
   const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
-  const cudaError_t err = set_smem(measure_kernel<M>, smem);
+  const cudaError_t err = set_smem(measure_kernel<M, STORE_D>, smem);
   if (err != cudaSuccess) return err;
-  measure_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  measure_kernel<M, STORE_D><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(raw), static_cast<const float2*>(F),
       static_cast<const float2*>(Tw), static_cast<const float2*>(R),
       static_cast<const float*>(eref), static_cast<float*>(lag), static_cast<float*>(zre),
@@ -379,11 +367,29 @@ extern "C" int fused_measure_i8_spec(const void* raw, const void* F, const void*
                                      int T1, int N, int m, void* stream) {
   switch (m) {
     case 64:
-      return fused::launch<64>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim, T1, N,
-                               stream);
+      return fused::launch<64, true>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim, T1,
+                                     N, stream);
     case 128:
-      return fused::launch<128>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim, T1, N,
-                                stream);
+      return fused::launch<128, true>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim, T1,
+                                      N, stream);
+    default:
+      return -1;
+  }
+}
+
+// fused_measure_i8_spec without the spectrum: the same inputs and five
+// scalar outputs, no D stored. Returns the CUDA error code of the launch
+// (0 on success); -1 for an unsupported m.
+extern "C" int fused_measure_i8(const void* raw, const void* F, const void* Tw, const void* R,
+                                const void* eref, void* lag, void* zre, void* zim, void* mag,
+                                void* papr, int T1, int N, int m, void* stream) {
+  switch (m) {
+    case 64:
+      return fused::launch<64, false>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, nullptr,
+                                      nullptr, T1, N, stream);
+    case 128:
+      return fused::launch<128, false>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, nullptr,
+                                       nullptr, T1, N, stream);
     default:
       return -1;
   }

@@ -8,13 +8,18 @@ The overlap-save window of output slot t is stream blocks (t, t+1), W = 2L
 = m*m, and spectra are in the permuted (k2, k1) layout of
 ``kernels/fft4step.py``. Two block formats:
 
-* i8 (the fused pipeline's spectrum-handoff pair): signed capture bytes in
-  the wide layout ``[..., m/2, 2m]`` (row r holds samples [r*m, (r+1)*m) as
-  I0 Q0 I1 Q1 ...). ``measure_ref`` transforms the reference windows once,
-  ``measure_spec`` measures every channel window against them and stores D
-  as bf16 (on the TPU one kernel body did both, carrying the reference
-  spectrum across the channels of a grid step), and ``apply_spec_i8`` turns
-  D into int8 wire bytes.
+* i8: signed capture bytes in the wide layout ``[..., m/2, 2m]`` (row r
+  holds samples [r*m, (r+1)*m) as I0 Q0 I1 Q1 ...), int8 wire bytes out,
+  as two pairs. ``measure_ref`` transforms the reference windows once for
+  either (on the TPU one kernel body did that too, carrying the reference
+  spectrum across the channels of a grid step).
+  - The spectrum handoff (the fused pipeline's pair): ``measure_spec``
+    measures every channel window against the reference and stores D as
+    bf16; ``apply_spec_i8`` turns D into wire bytes.
+  - The recompute pair (the JAX package's baseline for the handoff):
+    ``measure_i8`` returns the same five scalars and stores nothing;
+    ``apply_i8`` reads the bytes again and recomputes the forward transform,
+    ramping the float32 D.
 * float (``FusedSpectral``): bf16 block planes ``[T, N, m/2, m]`` (re, im).
   ``measure`` takes the reference window spectra as bf16 planes and returns
   (lag, |z|, sum |D|^2, sum |G|^2); ``apply`` recomputes the forward
@@ -53,7 +58,8 @@ _TWO_PI = 2.0 * math.pi
 # The operations with a CUDA kernel each; the instance counts the launches
 # of each kernel ("<name>_launches") and the runs of each plain version
 # ("<name>_plain_runs").
-KERNELS = ("measure_ref", "measure_spec", "apply_spec_i8", "measure", "apply")
+KERNELS = ("measure_ref", "measure_spec", "apply_spec_i8", "measure_i8", "apply_i8",
+           "measure", "apply")
 COUNTS = tuple(f"{k}_launches" for k in KERNELS) + tuple(f"{k}_plain_runs" for k in KERNELS)
 
 
@@ -136,6 +142,33 @@ class FusedPipelineKernels:
         if dre.device.type == "cpu":
             return self.apply_spec_i8_plain(dre, dim, advance, phase_re, phase_im)
         raise ValueError(f"no apply_spec_i8 for device {dre.device}")
+
+    def measure_i8(self, raw: torch.Tensor, ref_raw: torch.Tensor):
+        """The recompute pair's measure: raw ``[T, N, m/2, 2m]`` int8
+        channel blocks against :meth:`measure_ref` of ``ref_raw`` ``[T, m/2,
+        2m]`` (two kernels, as :meth:`measure_i8_spec`). Returns (lag, z_re,
+        z_im, mag, papr), each float32 ``[T-1, N]``, the scalars of
+        :meth:`measure_spec`, and stores no spectrum."""
+        if raw.is_cuda:
+            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+
+            return fused_cuda.measure_i8(self, raw, *self.measure_ref(ref_raw))
+        if raw.device.type == "cpu":
+            return self.measure_i8_plain(raw, *self.measure_ref(ref_raw))
+        raise ValueError(f"no measure_i8 for device {raw.device}")
+
+    def apply_i8(self, raw: torch.Tensor, advance, phase_re, phase_im):
+        """The recompute pair's apply: raw ``[T, N, m/2, 2m]`` int8 blocks
+        and float32 advance / phase factor ``[T-1, N]``. Recomputes the
+        window spectra and returns the wire blocks of :meth:`apply_spec_i8`
+        from the float32 spectra, int8 ``[T-1, N, m/2, 2m]``."""
+        if raw.is_cuda:
+            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+
+            return fused_cuda.apply_i8(self, raw, advance, phase_re, phase_im)
+        if raw.device.type == "cpu":
+            return self.apply_i8_plain(raw, advance, phase_re, phase_im)
+        raise ValueError(f"no apply_i8 for device {raw.device}")
 
     def measure(self, pre, pim, rre, rim):
         """Float path: block planes ``pre``/``pim`` bf16 ``[T, N, m/2, m]``
@@ -250,10 +283,9 @@ class FusedPipelineKernels:
         rre, rim = self.fft.fft_planes(*self._windows(ref_raw))     # [T-1, m, m]
         return torch.stack([rre, rim], dim=-1), (rre * rre + rim * rim).sum((-2, -1))
 
-    def measure_spec_plain(self, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
-        """Plain PyTorch version of :meth:`measure_spec`, on the device of its
-        inputs."""
-        self.measure_spec_plain_runs += 1
+    def _measure_channels(self, raw, R, eref):
+        """The channel half of both i8 measures: (lag, z_re, z_im, mag,
+        papr) ``[T-1, N]`` and the float32 window spectra (dre, dim)."""
         dre, dim = self.fft.fft_planes(*self._windows(raw))         # [T-1, N, m, m]
         gre, gim = _cmul_conj(dre, dim, R[:, None, ..., 0], R[:, None, ..., 1])
         lag, z_re, z_im, eg = self._phase_zoom(gre, gim)
@@ -262,24 +294,50 @@ class FusedPipelineKernels:
         denom = torch.sqrt(esig * eref[:, None])
         mag = zabs / torch.clamp(denom, min=1e-30)
         papr = zabs * zabs / torch.clamp(eg, min=1e-30)
-        return (lag, z_re, z_im, mag, papr,
-                dre.to(torch.bfloat16), dim.to(torch.bfloat16))
+        return lag, z_re, z_im, mag, papr, dre, dim
+
+    def measure_spec_plain(self, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
+        """Plain PyTorch version of :meth:`measure_spec`, on the device of its
+        inputs."""
+        self.measure_spec_plain_runs += 1
+        *scal, dre, dim = self._measure_channels(raw, R, eref)
+        return (*scal, dre.to(torch.bfloat16), dim.to(torch.bfloat16))
+
+    def measure_i8_plain(self, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
+        """Plain PyTorch version of :meth:`measure_i8`'s channel kernel, on
+        the reference spectra of :meth:`measure_ref` (as
+        :meth:`measure_spec_plain`), on the device of its inputs."""
+        self.measure_i8_plain_runs += 1
+        return self._measure_channels(raw, R, eref)[:5]
 
     def measure_i8_spec_plain(self, raw: torch.Tensor, ref_raw: torch.Tensor):
         """Plain PyTorch version of :meth:`measure_i8_spec`."""
         return self.measure_spec_plain(raw, *self.measure_ref_plain(ref_raw))
 
-    def apply_spec_i8_plain(self, dre, dim, advance, phase_re, phase_im):
-        """Plain PyTorch version of :meth:`apply_spec_i8`, on the device of
-        its inputs."""
-        self.apply_spec_i8_plain_runs += 1
+    def _apply_wire(self, dre, dim, advance, phase_re, phase_im):
+        """The apply of both i8 pairs on float32 spectra: the ramp times the
+        phase factor, the centre rows of the inverse, round half to even
+        x127, saturate, interleave into wire blocks ``[..., m/2, 2m]``."""
         wr, wi = _cmul(*self._ramp(advance), phase_re[..., None, None], phase_im[..., None, None])
-        gre, gim = _cmul(dre.to(torch.float32), dim.to(torch.float32), wr, wi)
-        yre, yim = self._inverse_centre(gre, gim)
+        yre, yim = self._inverse_centre(*_cmul(dre, dim, wr, wi))
         inv = 1.0 / IQ_SCALE
         yq = torch.stack([yre * inv, yim * inv], dim=-1)       # [..., m/2, m, 2]
         yq = torch.clamp(torch.round(yq), -128.0, 127.0).to(torch.int8)
         return yq.reshape(*yq.shape[:-2], 2 * self.m)
+
+    def apply_spec_i8_plain(self, dre, dim, advance, phase_re, phase_im):
+        """Plain PyTorch version of :meth:`apply_spec_i8`, on the device of
+        its inputs."""
+        self.apply_spec_i8_plain_runs += 1
+        return self._apply_wire(dre.to(torch.float32), dim.to(torch.float32), advance,
+                                phase_re, phase_im)
+
+    def apply_i8_plain(self, raw: torch.Tensor, advance, phase_re, phase_im):
+        """Plain PyTorch version of :meth:`apply_i8`, on the device of its
+        inputs."""
+        self.apply_i8_plain_runs += 1
+        return self._apply_wire(*self.fft.fft_planes(*self._windows(raw)), advance,
+                                phase_re, phase_im)
 
     def measure_plain(self, pre, pim, rre, rim):
         """Plain PyTorch version of :meth:`measure`, on the device of its

@@ -1,5 +1,5 @@
-"""Build and bind the hand-written CUDA kernels of ``kernels/fused.py``
-and ``kernels/fourstep.py``.
+"""Build and bind the hand-written CUDA kernels of ``kernels/fused.py``,
+``kernels/fourstep.py`` and ``kernels/copy.py``.
 
 The sources in ``csrc/`` have a plain C interface. At first use each is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``
@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fused_measure.cu", "fused_apply.cu", "fourstep.cu")
+SOURCES = ("fused_measure.cu", "fused_apply.cu", "fourstep.cu", "probe_copy.cu")
 HEADERS = ("fused_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,10 +90,13 @@ _I = ctypes.c_int
 ENTRY_POINTS = (
     ("fused_measure.cu", "fused_measure_ref", 5, 2),
     ("fused_measure.cu", "fused_measure_i8_spec", 12, 3),
+    ("fused_measure.cu", "fused_measure_i8", 10, 3),
     ("fused_measure.cu", "fused_measure_planes", 10, 3),
     ("fused_apply.cu", "fused_apply_spec_i8", 8, 3),
+    ("fused_apply.cu", "fused_apply_i8", 8, 3),
     ("fused_apply.cu", "fused_apply_planes", 8, 3),
     ("fourstep.cu", "fourstep_fft", 4, 3),
+    ("probe_copy.cu", "probe_copy_blocks", 2, 4),
 )
 
 
@@ -124,7 +127,7 @@ def _expect(x: torch.Tensor, name, dtype, shape, device):
 
 def _aligned(*xs):
     """The tensors contiguous and 16-byte aligned (the kernels read up to
-    8-byte vectors from each base): a view that is neither is copied."""
+    16-byte vectors from each base): a view that is neither is copied."""
     out = [x.contiguous() for x in xs]
     return [x.clone() if x.data_ptr() % 16 else x for x in out]
 
@@ -166,29 +169,48 @@ def measure_ref(k, ref_raw: torch.Tensor):
     return R, eref
 
 
-def measure_spec(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
-    """Launch ``fused_measure_i8_spec`` (see ``FusedPipelineKernels.measure_spec``)."""
-    fns, (F, _, Tw), stream = _setup(k, raw, k.fft)
-    m = k.m
+def _expect_raw(raw, name, m):
+    """``raw`` int8 ``[T, N, m/2, 2m]`` with T >= 2; returns (T - 1, N)."""
     T, N = raw.shape[:2]
     if T < 2:
-        raise ValueError(f"measure_spec needs at least 2 blocks, got {T}")
-    dev = raw.device
-    T1 = T - 1
-    _expect(raw, "raw", torch.int8, (T, N, m // 2, 2 * m), dev)
+        raise ValueError(f"{name} needs at least 2 blocks, got {T}")
+    _expect(raw, "raw", torch.int8, (T, N, m // 2, 2 * m), raw.device)
+    return T - 1, N
+
+
+def _measure_channels(k, raw, R, eref, store_d: bool):
+    """Launch ``fused_measure_i8_spec`` (``store_d``) or ``fused_measure_i8``
+    on int8 blocks against the reference spectra of ``measure_ref``."""
+    name = "fused_measure_i8_spec" if store_d else "fused_measure_i8"
+    fns, (F, _, Tw), stream = _setup(k, raw, k.fft)
+    m, dev = k.m, raw.device
+    T1, N = _expect_raw(raw, name, m)
     _expect(R, "R", torch.float32, (T1, m, m, 2), dev)
     _expect(eref, "eref", torch.float32, (T1,), dev)
     raw, R, eref = _aligned(raw, R, eref)
     scal = [torch.empty((T1, N), dtype=torch.float32, device=dev) for _ in range(5)]
-    dre = torch.empty((T1, N, m, m), dtype=torch.bfloat16, device=dev)
-    dim = torch.empty_like(dre)
+    d = ([torch.empty((T1, N, m, m), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+         if store_d else [])
     with torch.cuda.device(dev):
-        rc = fns["fused_measure_i8_spec"](
-            raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(), eref.data_ptr(),
-            *(s.data_ptr() for s in scal), dre.data_ptr(), dim.data_ptr(), T1, N, m, stream)
-    _check("fused_measure_i8_spec", rc)
+        rc = fns[name](raw.data_ptr(), F.data_ptr(), Tw.data_ptr(), R.data_ptr(),
+                       eref.data_ptr(), *(x.data_ptr() for x in scal + d), T1, N, m, stream)
+    _check(name, rc)
+    return (*scal, *d)
+
+
+def measure_spec(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
+    """Launch ``fused_measure_i8_spec`` (see ``FusedPipelineKernels.measure_spec``)."""
+    out = _measure_channels(k, raw, R, eref, store_d=True)
     k.measure_spec_launches += 1
-    return (*scal, dre, dim)
+    return out
+
+
+def measure_i8(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
+    """Launch ``fused_measure_i8`` (see ``FusedPipelineKernels.measure_i8``):
+    the five scalars of ``measure_spec``, no spectrum stored."""
+    out = _measure_channels(k, raw, R, eref, store_d=False)
+    k.measure_i8_launches += 1
+    return out
 
 
 def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
@@ -208,6 +230,23 @@ def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
                                         Tw.data_ptr(), out.data_ptr(), T1, N, m, stream)
     _check("fused_apply_spec_i8", rc)
     k.apply_spec_i8_launches += 1
+    return out
+
+
+def apply_i8(k, raw, advance, phase_re, phase_im):
+    """Launch ``fused_apply_i8`` (see ``FusedPipelineKernels.apply_i8``)."""
+    fns, (F, Fi, Tw), stream = _setup(k, raw, k.fft)
+    m, dev = k.m, raw.device
+    T1, N = _expect_raw(raw, "fused_apply_i8", m)
+    for name, x in (("advance", advance), ("phase_re", phase_re), ("phase_im", phase_im)):
+        _expect(x, name, torch.float32, (T1, N), dev)
+    args = _aligned(raw, advance, phase_re, phase_im)
+    out = torch.empty((T1, N, m // 2, 2 * m), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        rc = fns["fused_apply_i8"](*(x.data_ptr() for x in args), F.data_ptr(), Fi.data_ptr(),
+                                   Tw.data_ptr(), out.data_ptr(), T1, N, m, stream)
+    _check("fused_apply_i8", rc)
+    k.apply_i8_launches += 1
     return out
 
 
@@ -273,4 +312,26 @@ def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         k.ifft_launches += 1
     else:
         k.fft_launches += 1
+    return y
+
+
+def copy_blocks(c, x: torch.Tensor, nc: int) -> torch.Tensor:
+    """Launch ``probe_copy_blocks`` on ``x`` int8 ``[T, N, m/2, 2m]`` with
+    ``nc`` channels a CTA (see ``BlockCopy.copy``); returns the copy."""
+    if x.dtype != torch.int8 or x.dim() != 4 or x.shape[3] != 4 * x.shape[2]:
+        raise ValueError(f"copy_blocks: need int8 [T, N, m/2, 2m], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    T, N = x.shape[:2]
+    W = x.shape[2] * x.shape[3]
+    if T < 1 or nc < 1 or N % nc or W % 16:
+        raise ValueError(f"copy_blocks: need T >= 1, N a multiple of nc and m*m a multiple "
+                         f"of 16, got T = {T}, N = {N}, nc = {nc}, m*m = {W}")
+    fns = _functions()
+    (x,) = _aligned(x)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = fns["probe_copy_blocks"](x.data_ptr(), y.data_ptr(), T, N, W, nc,
+                                      torch.cuda.current_stream(x.device).cuda_stream)
+    _check("probe_copy_blocks", rc)
+    c.copy_launches += 1
     return y

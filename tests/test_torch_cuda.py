@@ -11,13 +11,15 @@ the reference spectrum's elements rounded to bf16, more than 1 bf16 ulp
 apart; the reference energy rtol 1e-3; wire bytes max |diff| <= 2 LSB with
 under 1e-3 of them > 1 LSB, and the float apply's output within the same
 bars in float units (2/127, 1/127); the four-step FFT max |diff| / max
-|plain| <= 1e-3, and within 3e-2 of torch.fft (tests/test_kernels.py:81).
+|plain| <= 1e-3, and within 3e-2 of torch.fft (tests/test_kernels.py:81);
+the block copy bit-equal to its input.
 """
 
 import pytest
 import torch
 
 from coherent_rtlsdr_tpu_torch.kernels.backend import get_spectral
+from coherent_rtlsdr_tpu_torch.kernels.copy import BlockCopy
 from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel, get_fourstep_kernel
 from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels, get_fused_kernels
 from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64, u8_to_i8
@@ -194,3 +196,54 @@ def test_backends_run_on_card_without_plain_paths(impl, cuda_device):
     want_fused = dict(measure_launches=1, apply_launches=1) if impl == "fused" else {}
     assert fk.counts() == dict.fromkeys(fk.counts(), 0) | want_fft
     assert kk.counts() == dict.fromkeys(kk.counts(), 0) | want_fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("kind", ["random", "correlated"])
+def test_recompute_kernels_match_plain_on_card(kind, m, cuda_device):
+    """fused_measure_i8 (after fused_measure_ref) and fused_apply_i8 against
+    their plain versions, by the bars of the handoff pair's kernels."""
+    k = FusedPipelineKernels(m * m, cuda_device)
+    raw, ref_raw = _blocks(kind, m, cuda_device)
+    got = k.measure_i8(raw, ref_raw)
+    # The plain channel half on the kernel's reference spectra, so the
+    # channel kernel is held alone (fused_measure_ref: the handoff test).
+    want = k.measure_i8_plain(raw, *k.measure_ref(ref_raw))
+    torch.cuda.synchronize()
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(
+        measure_ref_launches=2, measure_i8_launches=1, measure_i8_plain_runs=1)
+    assert len(got) == 5
+    for x in got:
+        assert x.shape == (T - 1, N) and torch.isfinite(x).all()
+    used = want[3] >= MIN_CORR_MAG
+    assert torch.equal(got[3] >= MIN_CORR_MAG, used)
+    assert used.all() if kind == "correlated" else not used.any()
+    assert ((got[0] - want[0]).abs()[used] <= 1e-3).all()
+    for a, b in zip(got[1:], want[1:]):
+        assert ((a - b).abs() <= 1e-3 * b.abs())[used].all()
+
+    adv = torch.linspace(-40, 40, (T - 1) * N, device=cuda_device).reshape(T - 1, N)
+    adv[0, 0] = -1500.25   # a large integer part of either sign
+    adv[0, 1] = 1023.5
+    args = (adv, torch.cos(adv), torch.sin(adv))
+    wk = k.apply_i8(raw, *args)
+    wp = k.apply_i8_plain(raw, *args)
+    torch.cuda.synchronize()
+    assert (k.apply_i8_launches, k.apply_i8_plain_runs) == (1, 1)
+    assert wk.dtype == torch.int8 and wk.shape == (T - 1, N, m // 2, 2 * m)
+    d = (wk.int() - wp.int()).abs()
+    assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 7])
+def test_copy_blocks_bit_equal_on_card(nc, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(nc)
+    x = torch.randint(-128, 128, (4, 21, 64, 256), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    c = BlockCopy()
+    y = c.copy(x, nc)
+    torch.cuda.synchronize()
+    assert c.counts() == dict(copy_launches=1, copy_plain_runs=0)
+    assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
