@@ -25,8 +25,10 @@ four-step FFT kernel) and ``FusedSpectral`` (the float measure/apply
 kernels):
 
   8. the four-step kernel forward and inverse at m = 128 and 64 against its
-     plain version and torch.fft, and the float measure/apply kernels
-     against theirs at N = 21, on random and correlated planes;
+     plain version and torch.fft, at B = 42 and at the batch sizes that
+     exercise its persistent grid of one CTA an SM (1, SMs - 1, SMs + 1,
+     3 SMs + 5), and the float measure/apply kernels against theirs at
+     N = 21, on random and correlated planes;
   9. the generic offline engine at T = 256: samples/s over >= 5 timed runs,
      peak memory, four-step launch counts; once with fft_impl="xla"
      (cuFFT) beside it;
@@ -35,8 +37,8 @@ kernels):
  12. ``FusedSpectral`` prepare -> measure -> correct at T = 256, by its
      launch counts;
  13. the four-step kernel (B = 5,355 transforms) against its plain version
-     and ``torch.fft``, and the float measure/apply kernels against theirs,
-     at the offline shapes, timed.
+     and ``torch.fft``, timed over runs of launches, and the float
+     measure/apply kernels against theirs, at the offline shapes.
 
 The recompute i8 pair (``measure_i8`` -> ``apply_i8``) and the roofline
 probe with its block copy:
@@ -49,10 +51,12 @@ probe with its block copy:
      tests/test_kernels.py:433-450) and timed against its plain versions;
  15. the roofline probe (``coherent_rtlsdr_tpu_torch.tools.probe_roofline``)
      at full size, by its launch counts, then the block copy held bit-equal
-     to its input and timed against its plain version and ``x.clone()``.
+     to its input and timed against its plain version and ``x.clone()``,
+     over runs of launches.
 
 Every phase prints one JSON line; a failed check raises, so the exit code is
-not 0. Before the last line it prints the card's name and power limit and a
+not 0. Before the last line it prints the ptxas report of the four-step
+kernel (registers, spills, stack), the card's name and power limit and a
 JSON summary of the nine kernels (times, launches, errors, and the bound
 from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and bf16
 operations over 989 TFLOP/s); the last line is ``{"ok": true, "device":
@@ -90,6 +94,10 @@ Y_GT1_SHARE = 1e-3       # float apply: share of samples more than 1/127 apart
 GEN_LAG_MAX = 0.1        # max |delay - truth|, samples
 GEN_PHASE_MAX_DEG = 3.0  # max |residual phase|, degrees
 
+# Calls a timed run of the four-step kernel (phase 13) and of the copy
+# (phase 15): back to back, so the host's launch time drops out.
+FFT_REPS, COPY_REPS = 5, 20
+
 N_CH, L = 21, 8192
 T_OFFLINE, K_STREAM, CALLS_STREAM = 256, 32, 4
 GENERIC = dict(fft_impl="pallas", lag_method="phase_slope")
@@ -103,15 +111,18 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn):
-    """Device time of one run of ``fn``, between two CUDA events (ms)."""
+def cuda_ms(fn, reps=1):
+    """Device time of one run of ``fn``, between two CUDA events around
+    ``reps`` runs, over reps (ms). With reps > 1 the host enqueues ahead of
+    the card, so the wrapper's host time drops out of a short kernel's."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    fn()
+    for _ in range(reps):
+        fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b)
+    return a.elapsed_time(b) / reps
 
 
 def device_profile(fn):
@@ -262,16 +273,17 @@ def launched_only_kernels(counts, n, where):
                                apply_spec_i8_launches=n), where)
 
 
-def timed_interleaved(fns, bases, variants):
+def timed_interleaved(fns, bases, variants, reps=1):
     """Median ms of each ``fns[base + variant]`` over four runs in turns
-    (first, second, second, first variant), after a warm-up of each."""
+    (first, second, second, first variant), after a warm-up of each; each
+    run times ``reps`` calls (see cuda_ms)."""
     times = {name: [] for name in fns}
     for name in fns:
         cuda_ms(fns[name])
     for order in (variants, variants[::-1], variants[::-1], variants):
         for base in bases:
             for v in order:
-                times[base + v].append(cuda_ms(fns[base + v]))
+                times[base + v].append(cuda_ms(fns[base + v], reps))
     return {name: statistics.median(v) for name, v in times.items()}, times
 
 
@@ -411,6 +423,8 @@ def phase_generic_kernels(dev):
     from coherent_rtlsdr_tpu_torch.kernels.fused import FusedPipelineKernels
 
     out = []
+    # The four-step kernel's persistent grid is one CTA an SM.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for m in (128, 64):
         fk = FFT4StepKernel(m * m, dev)
         k = FusedPipelineKernels(m * m, dev)
@@ -418,6 +432,13 @@ def phase_generic_kernels(dev):
         x = torch.complex(torch.randn((2 * N_CH, m * m), generator=g, device=dev),
                           torch.randn((2 * N_CH, m * m), generator=g, device=dev))
         out.append(dict(kernel="fourstep", m=m, B=2 * N_CH, **hold_fourstep(fk, x, f"m={m}")))
+        # The persistent grid: one round short, one transform over, and
+        # several rounds with a ragged last one.
+        for B in (1, sms - 1, sms + 1, 3 * sms + 5):
+            xb = torch.complex(torch.randn((B, m * m), generator=g, device=dev),
+                               torch.randn((B, m * m), generator=g, device=dev))
+            out.append(dict(kernel="fourstep", m=m, B=B, sms=sms,
+                            **hold_fourstep(fk, xb, f"m={m} B={B}")))
         for kind, (raw, ref_raw) in small_blocks(m, g, dev).items():
             where = f"float m={m} {kind}"
             planes = planes_from_i8(raw, ref_raw, fk)
@@ -804,14 +825,16 @@ def main():
         "apply_plain": lambda: k.apply_plain(fctx.pre, fctx.pim, adv),
     }
     ms13, runs13 = timed_interleaved({n: f for n, f in fns.items() if n.startswith(("fft", "ifft"))},
-                                     ("fft", "ifft"), ("_plain", "", "_lib"))
+                                     ("fft", "ifft"), ("_plain", "", "_lib"), reps=FFT_REPS)
     ms13b, runs13b = timed_interleaved(
         {n: f for n, f in fns.items() if not n.startswith(("fft", "ifft"))},
         ("measure", "apply"), ("_plain", ""))
     ms13.update(ms13b)
     runs13.update(runs13b)
     emit(dict(phase="generic_kernel_times", card=smi, N=N_CH, L=L, T=T_OFFLINE, B=B, ms=ms13,
-              runs=runs13, kernel_vs_plain=errs13))
+              runs=runs13, fft_reps=FFT_REPS, kernel_vs_plain=errs13,
+              kernel_over_torch_fft=dict(fft=ms13["fft"] / ms13["fft_lib"],
+                                         ifft=ms13["ifft"] / ms13["ifft_lib"])))
 
     # --- The recompute pair and the roofline probe. --------------------
     from coherent_rtlsdr_tpu_torch.kernels.copy import get_block_copy
@@ -882,9 +905,10 @@ def main():
         raise AssertionError(f"copy_blocks is not bit-equal to its input: {copy_equal}")
     ms15, runs15 = timed_interleaved({
         "copy": lambda: copier.copy(raw, 1), "copy_plain": lambda: copier.copy_plain(raw),
-        "copy_lib": raw.clone}, ("copy",), ("_plain", "", "_lib"))
+        "copy_lib": raw.clone}, ("copy",), ("_plain", "", "_lib"), reps=COPY_REPS)
     emit(dict(phase="roofline_probe", card=smi, probe=probe, launches=counts_probe,
-              copy_bit_equal=copy_equal, copy_shape=list(raw.shape), ms=ms15, runs=runs15))
+              copy_bit_equal=copy_equal, copy_shape=list(raw.shape), ms=ms15, runs=runs15,
+              copy_reps=COPY_REPS, copy_over_clone=ms15["copy"] / ms15["copy_lib"]))
 
     # The kernels line. launches: the main path's runs (phases 3, 5, 14 and
     # 15 for the i8 kernels; 9, 11 and 12 for the four-step; 12 for the
@@ -912,6 +936,9 @@ def main():
     fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"])
+    emit(dict(phase="fourstep_ptxas", lines=[
+        ln.strip() for ln in report.get("fourstep.cu", "not compiled in this run").splitlines()
+        if any(w in ln for w in ("registers", "spill", "stack", "not compiled"))]))
     print(smi, flush=True)
     emit({"kernels": [
         entry("fused_measure_ref", "fused_measure.cu", tpu + "pallas_fused.py:356",

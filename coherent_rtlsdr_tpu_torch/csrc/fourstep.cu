@@ -1,5 +1,6 @@
-// Four-step FFT kernel: one forward or inverse W = m*m point transform per
-// CTA, in the permuted (k2, k1) frequency layout of kernels/fft4step.py.
+// Four-step FFT kernel on the tensor cores: forward or inverse W = m*m point
+// transforms of a batch, in the permuted (k2, k1) frequency layout of
+// kernels/fft4step.py.
 //
 // Replaces coherent_rtlsdr_tpu/kernels/pallas_fft.py:_fourstep_kernel,
 // _fourstep_kernel_inv and _fourstep_kernel_tiled (FFT4StepPallas.fft /
@@ -10,98 +11,326 @@
 //   forward:  A = bf16(x);  B = F A;  C = bf16(B * T);  D = C F
 //   inverse:  G = bf16(X);  C = G Fi;  B = bf16(C * conj(T));  x = Fi B
 //
-// with F and Fi = conj(F)/m bf16-rounded and T float32, so every product
-// takes bf16 operands and accumulates in float32, where the Pallas bodies
-// cast. The tiled Pallas body stacks `tile` transforms into one MXU product
-// to fill the matrix unit; it computes the same function, and here the grid
-// over the batch (one CTA per transform, 132 SMs) is that stacking.
+// with F and Fi = conj(F)/m bf16-rounded and T float32: every product takes
+// bf16 operands and accumulates in float32, as the Pallas bodies cast.
 //
-// Design. Input and output are complex64 [B, m, m] (interleaved float2).
-// What bounds it on the H100: by the bytes the function must move (128 kB
-// in and 128 kB out a transform at m = 128) it is memory-bound, 78 ns a
-// transform at 3.35 TB/s against 34 ns for its 33.6 MFLOP on the bf16
-// tensor cores; but this kernel runs the products on the SIMT FMA units
-// (two complex m x m x m products, 33.6 MFLOP), so it is compute-bound at
-// the FP32 rate. The intermediates stay in shared memory (forward: the
-// window as float2 and C as padded bf16, 197,120 bytes at m = 128; inverse:
-// G and B as padded bf16, 132,096 bytes). Tensor-core products are later
-// work.
+// What bounds it on the H100: the bytes the function must move, 128 kB in
+// and 128 kB out a transform at m = 128 (78 ns at 3.35 TB/s), against 34 ns
+// for its 33.6 MFLOP at the bf16 tensor-core peak; so the products must
+// overlap the memory traffic, at >= 430 TFLOP/s. The earlier body ran the
+// products on the SIMT FMA units, one CTA a transform in serial phases.
+//
+// Design.
+//   * Products on the tensor cores: mma.sync m16n8k16 bf16 -> f32, each
+//     complex product as four real ones (tc_common.cuh).
+//   * One warp owns a strip of 16 rows of the transform: the first product
+//     leaves the strip's rows in its accumulators, the twiddle and the bf16
+//     rounding run on them in registers, and they are the A fragments of the
+//     second product, so the intermediate never goes to shared memory. The
+//     inverse runs transposed (C^T = Fi G^T, x^T = B^T Fi; F, Fi and T are
+//     symmetric) so that it too keeps its intermediate in registers; its
+//     output is turned back through a small per-warp staging tile.
+//   * Tables once a CTA: F or Fi as bf16 re / im planes in swizzled shared
+//     memory (64 kB at m = 128), read by ldmatrix; the twiddle stays float32
+//     and is read from L2 in the first product's epilogue.
+//   * A persistent grid (one CTA an SM at m = 128) walks the batch. Four
+//     producer warps stream the next window from device memory, round it to
+//     bf16 and write it into the other of two window buffers while the
+//     m / 16 consumer warps compute; named barriers hand the buffers over.
+//   * Stores: 16-byte, four neighbouring threads on 64 contiguous bytes
+//     (forward) or eight on 128 (inverse, after the staging tile).
+// Shared memory at m = 128: 64 kB tables + 2 x 64 kB windows + 9 kB staging.
 
-#include "fused_common.cuh"
+#include "tc_common.cuh"
 
-namespace fused {
+namespace fourstep {
 
-template <int M, bool INVERSE>
-struct FourStepSmem {
-  static constexpr size_t kBytes =
-      INVERSE ? 2 * SmemBf16Matrix<M>::kBytes : sizeof(float2) * M * M + SmemBf16Matrix<M>::kBytes;
+constexpr int kProducerWarps = 4;
+constexpr int kLoadUnroll = 8;  // 16-byte loads in flight a producer thread
+// Columns a product handles at once (kChunk / 8 n8 tiles of accumulators):
+// 32 keeps a consumer thread at ~150 registers, under the 168 that 384
+// threads an SM leave, where 64 spilled.
+constexpr int kChunk = 32;
+constexpr int kStageStride = 36;  // floats a staged row: 16 complex + 4 padding
+constexpr int kFull = 1;          // named barriers kFull + s: window s is loaded
+constexpr int kEmpty = 3;         // kEmpty + s: window s may be overwritten
+
+template <int M>
+struct Plan {
+  static constexpr int kConsumerWarps = M / 16;  // a strip of 16 rows each
+  static constexpr int kConsumers = 32 * kConsumerWarps;
+  static constexpr int kProducers = 32 * kProducerWarps;
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr int kPlane = M * M;  // bf16 elements of one plane
+  // Tables (re, im), two windows (re, im), a staging tile a consumer warp.
+  static constexpr size_t kBytes = 6 * kPlane * sizeof(__nv_bfloat16) +
+                                   kConsumerWarps * 8 * kStageStride * sizeof(float);
 };
 
-// One transform per CTA: x, y complex64 [B, m, m]; tab = F (forward) or Fi
-// (inverse), Tw the twiddle, all float2 [m, m].
-template <int M, bool INVERSE>
-__global__ void __launch_bounds__(kThreads)
-fourstep_kernel(const float2* __restrict__ x, const float2* __restrict__ tab,
-                const float2* __restrict__ Tw, float2* __restrict__ y) {
-  constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const float2* xb = x + static_cast<size_t>(blockIdx.x) * W;
-  float2* yb = y + static_cast<size_t>(blockIdx.x) * W;
+// B * T (forward) or C * conj(T) (inverse), each product rounded on its own
+// as the plain version's elementwise ops round.
+template <bool CONJ>
+__device__ __forceinline__ float2 twiddle(float re, float im, float tr, float ti) {
+  if (CONJ)
+    return make_float2(__fadd_rn(__fmul_rn(re, tr), __fmul_rn(im, ti)),
+                       __fsub_rn(__fmul_rn(im, tr), __fmul_rn(re, ti)));
+  return make_float2(__fsub_rn(__fmul_rn(re, tr), __fmul_rn(im, ti)),
+                     __fadd_rn(__fmul_rn(re, ti), __fmul_rn(im, tr)));
+}
 
-  if constexpr (INVERSE) {
-    SmemBf16Matrix<M> G{reinterpret_cast<__nv_bfloat162*>(smem)};
-    SmemBf16Matrix<M> B{reinterpret_cast<__nv_bfloat162*>(smem + SmemBf16Matrix<M>::kBytes)};
-    for (int i = threadIdx.x; i < W; i += kThreads) {
-      const float2 v = xb[i];
-      G.set(i / M, i % M, v.x, v.y);
+// Producer warps: window j of this CTA (transform blockIdx.x + j gridDim.x)
+// into buffer j % 2 as swizzled bf16 planes [row][col] of the [m, m] input.
+template <int M>
+__device__ __forceinline__ void produce(const float2* __restrict__ x, __nv_bfloat16* win,
+                                        int n_local) {
+  using P = Plan<M>;
+  constexpr int kVec = M * M / 2;  // float4 (two complex samples) a window
+  static_assert(kVec % (P::kProducers * kLoadUnroll) == 0, "whole rounds only");
+  const int p = threadIdx.x - P::kConsumers;
+  for (int j = 0; j < n_local; ++j) {
+    const int s = j & 1;
+    if (j >= 2) tc::bar_sync(kEmpty + s, P::kThreads);
+    const size_t b = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
+    const float4* src = reinterpret_cast<const float4*>(x + b * M * M);
+    __nv_bfloat16* re = win + s * 2 * P::kPlane;
+    __nv_bfloat16* im = re + P::kPlane;
+    for (int q0 = p; q0 < kVec; q0 += P::kProducers * kLoadUnroll) {
+      float4 v[kLoadUnroll];
+#pragma unroll
+      for (int u = 0; u < kLoadUnroll; ++u) v[u] = __ldcs(src + q0 + u * P::kProducers);
+#pragma unroll
+      for (int u = 0; u < kLoadUnroll; ++u) {
+        const int e = 2 * (q0 + u * P::kProducers);
+        const int o = tc::swz<M>(e / M, e % M);
+        *reinterpret_cast<uint32_t*>(re + o) = tc::pack_bf16(v[u].x, v[u].z);
+        *reinterpret_cast<uint32_t*>(im + o) = tc::pack_bf16(v[u].y, v[u].w);
+      }
     }
-    __syncthreads();
-    inverse_fft<M, M>(G, B, tab, Tw, [&](int r, int c, float re, float im) {
-      yb[r * M + c] = make_float2(re, im);
-    });
-  } else {
-    float2* A = reinterpret_cast<float2*>(smem);
-    SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + sizeof(float2) * M * M)};
-    forward_fft<M>(
-        [&](float2* a) {
-          for (int i = threadIdx.x; i < W; i += kThreads) {
-            const float2 v = xb[i];
-            a[i] = make_float2(bf16_round(v.x), bf16_round(v.y));
-          }
-        },
-        tab, Tw, A, C, [&](int r, int c, float re, float im) {
-          yb[r * M + c] = make_float2(re, im);
-        });
+    tc::bar_arrive(kFull + s, P::kThreads);
   }
+}
+
+// Consumer warp: rows r0..r0+15 of both products of every window of this
+// CTA. First product: acc[r, c] = sum_k tab[r, k] R[k, c] with R the window
+// (forward: A[n2, n1] stored [k][n]; inverse: G^T, i.e. G stored [n][k]);
+// twiddle; second product: out[r, c'] = sum_c C[r, c] tab[c, c'], the
+// symmetric table read as stored [n][k].
+template <int M, bool INVERSE>
+__device__ __forceinline__ void consume(const __nv_bfloat16* tab, const __nv_bfloat16* win,
+                                        float* stage, const float2* __restrict__ Tw,
+                                        float2* __restrict__ y, int n_local) {
+  using P = Plan<M>;
+  constexpr int KS = M / 16;       // k steps of 16
+  constexpr int NCH = M / kChunk;  // column chunks
+  constexpr int NT = kChunk / 8;   // n8 tiles a chunk
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = warp * 16;
+  const __nv_bfloat16* tre = tab;
+  const __nv_bfloat16* tim = tab + P::kPlane;
+  float* st = stage + warp * 8 * kStageStride;
+
+  for (int j = 0; j < n_local; ++j) {
+    const int s = j & 1;
+    const size_t b = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
+    const __nv_bfloat16* wre = win + s * 2 * P::kPlane;
+    const __nv_bfloat16* wim = wre + P::kPlane;
+    float2* yb = y + b * M * M;
+    tc::bar_sync(kFull + s, P::kThreads);
+
+    // First product, a chunk of kChunk columns at a time; its twiddled bf16
+    // result becomes the A fragments cre / cim of the second.
+    uint32_t cre[KS][4], cim[KS][4];
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      float are[NT][4], aim[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) are[i][e] = aim[i][e] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t lre[4], lim[4], lnim[4];
+        tc::ldsm_a<M>(tre, r0, ks * 16, lre);
+        tc::ldsm_a<M>(tim, r0, ks * 16, lim);
+        tc::negate(lim, lnim);
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          const int n0 = cc * kChunk + p * 16;
+          uint32_t bre[4], bim[4];
+          if constexpr (INVERSE) {
+            tc::ldsm_b<M>(wre, n0, ks * 16, bre);
+            tc::ldsm_b<M>(wim, n0, ks * 16, bim);
+          } else {
+            tc::ldsm_b_trans<M>(wre, n0, ks * 16, bre);
+            tc::ldsm_b_trans<M>(wim, n0, ks * 16, bim);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tc::cmma(are[2 * p + h], aim[2 * p + h], lre, lim, lnim, bre[2 * h], bre[2 * h + 1],
+                     bim[2 * h], bim[2 * h + 1]);
+        }
+      }
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        const int c = cc * kChunk + jt * 8 + 2 * t;
+        const int kt = cc * NT + jt;  // n8 tile index across the strip
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh;
+          const float4 tw = __ldg(reinterpret_cast<const float4*>(Tw + r * M + c));
+          const float2 v0 = twiddle<INVERSE>(are[jt][2 * hh], aim[jt][2 * hh], tw.x, tw.y);
+          const float2 v1 = twiddle<INVERSE>(are[jt][2 * hh + 1], aim[jt][2 * hh + 1], tw.z, tw.w);
+          cre[kt / 2][(kt & 1) * 2 + hh] = tc::pack_bf16(v0.x, v1.x);
+          cim[kt / 2][(kt & 1) * 2 + hh] = tc::pack_bf16(v0.y, v1.y);
+        }
+      }
+    }
+    // The window is consumed: the producers may refill its buffer.
+    if (j + 2 < n_local) tc::bar_arrive(kEmpty + s, P::kThreads);
+
+    // Second product and the stores, a chunk of kChunk output columns at a time.
+#pragma unroll 1
+    for (int cc = 0; cc < NCH; ++cc) {
+      float dre[NT][4], dim[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dre[i][e] = dim[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ncim[4];
+        tc::negate(cim[kk], ncim);
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t bre[4], bim[4];
+          tc::ldsm_b<M>(tre, cc * kChunk + p * 16, kk * 16, bre);
+          tc::ldsm_b<M>(tim, cc * kChunk + p * 16, kk * 16, bim);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tc::cmma(dre[2 * p + h], dim[2 * p + h], cre[kk], cim[kk], ncim, bre[2 * h],
+                     bre[2 * h + 1], bim[2 * h], bim[2 * h + 1]);
+        }
+      }
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        const int c = cc * kChunk + jt * 8 + 2 * t;
+        if constexpr (INVERSE) {
+          // out^T: this strip's rows are n1, its columns n2; y[n2, n1].
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<float2*>(st + (2 * t + e) * kStageStride + (g + 8 * hh) * 2) =
+                  make_float2(dre[jt][2 * hh + e], dim[jt][2 * hh + e]);
+          __syncwarp();
+#pragma unroll
+          for (int pass = 0; pass < 2; ++pass) {
+            const int row = pass * 4 + (lane >> 3);
+            const int q = lane & 7;
+            const float4 v = *reinterpret_cast<const float4*>(st + row * kStageStride + q * 4);
+            __stcs(reinterpret_cast<float4*>(yb + (cc * kChunk + jt * 8 + row) * M + r0 + 2 * q), v);
+          }
+          __syncwarp();
+        } else {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            __stcs(reinterpret_cast<float4*>(yb + (r0 + g + 8 * hh) * M + c),
+                   make_float4(dre[jt][2 * hh], dim[jt][2 * hh], dre[jt][2 * hh + 1],
+                               dim[jt][2 * hh + 1]));
+        }
+      }
+    }
+  }
+}
+
+// x, y complex64 [B, m, m]; tab the packed bf16 table [2 (re, im), m, m] of
+// F (forward) or Fi (inverse); Tw the twiddle, float2 [m, m]. CTA b handles
+// transforms b, b + gridDim.x, ...
+template <int M, bool INVERSE>
+__global__ void __launch_bounds__(Plan<M>::kThreads, 1)
+fourstep_kernel(const float2* __restrict__ x, const __nv_bfloat16* __restrict__ tab,
+                const float2* __restrict__ Tw, float2* __restrict__ y, int B) {
+  using P = Plan<M>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tab_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* win_s = tab_s + 2 * P::kPlane;
+  float* stage_s = reinterpret_cast<float*>(win_s + 4 * P::kPlane);
+
+  // The table, 16-byte chunks into swizzled rows (row = plane * M + r).
+  constexpr int kChunks = 2 * P::kPlane / 8;
+  for (int q = threadIdx.x; q < kChunks; q += P::kThreads) {
+    const int row = q / (M / 8);
+    *reinterpret_cast<int4*>(tab_s + tc::swz<M>(row, (q % (M / 8)) * 8)) =
+        __ldg(reinterpret_cast<const int4*>(tab) + q);
+  }
+  __syncthreads();
+
+  const int grid = static_cast<int>(gridDim.x);
+  const int n_local = (B - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+  if (threadIdx.x >= P::kConsumers)
+    produce<M>(x, win_s, n_local);
+  else
+    consume<M, INVERSE>(tab_s, win_s, stage_s, Tw, y, n_local);
+}
+
+// The persistent grid for a batch of B: every CTA that fits on the card at
+// once (a whole number of waves), at most B. The first call on a device
+// sets the kernel's shared memory and asks for its occupancy; later calls
+// reuse it. Returns the grid, or minus a CUDA error code.
+template <int M, bool INVERSE>
+int grid_for(int B) {
+  constexpr int kMaxDevices = 64;
+  static int capacity[kMaxDevices];  // SMs x CTAs an SM, 0 until asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && capacity[dev] == 0) {
+    const int smem = static_cast<int>(Plan<M>::kBytes);
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(fourstep_kernel<M, INVERSE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fourstep_kernel<M, INVERSE>,
+                                                          Plan<M>::kThreads, smem);
+    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+    if (err == cudaSuccess) capacity[dev] = sms * per_sm;
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return B < capacity[dev] ? B : capacity[dev];
 }
 
 template <int M, bool INVERSE>
 int launch(const void* x, const void* tab, const void* Tw, void* y, int B, void* stream) {
-  const int smem = static_cast<int>(FourStepSmem<M, INVERSE>::kBytes);
-  const cudaError_t err = set_smem(fourstep_kernel<M, INVERSE>, smem);
-  if (err != cudaSuccess) return err;
-  fourstep_kernel<M, INVERSE><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(tab),
-      static_cast<const float2*>(Tw), static_cast<float2*>(y));
+  const int grid = grid_for<M, INVERSE>(B);
+  if (grid < 0) return -grid;
+  fourstep_kernel<M, INVERSE>
+      <<<grid, Plan<M>::kThreads, Plan<M>::kBytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(x), static_cast<const __nv_bfloat16*>(tab),
+          static_cast<const float2*>(Tw), static_cast<float2*>(y), B);
   return cudaGetLastError();
 }
 
-}  // namespace fused
+}  // namespace fourstep
 
-// x, y complex64 [B, m, m]; tab = F (inverse = 0) or Fi = conj(F)/m
-// (inverse = 1), bf16-rounded, and Tw, all float2 [m, m]. Returns the CUDA
-// error code of the launch (0 on success); -1 for an unsupported m.
+// x, y complex64 [B, m, m] (B >= 1); tab the bf16 [2, m, m] (re, im) planes
+// of F (inverse = 0) or Fi = conj(F)/m (inverse = 1), bf16-rounded; Tw the
+// twiddle, float2 [m, m]; all 16-byte aligned. Returns the CUDA error code of
+// the launch (0 on success); -1 for an unsupported m or B < 1.
 extern "C" int fourstep_fft(const void* x, const void* tab, const void* Tw, void* y, int B,
                             int m, int inverse, void* stream) {
+  if (B < 1) return -1;
   switch (m * 2 + (inverse ? 1 : 0)) {
     case 64 * 2:
-      return fused::launch<64, false>(x, tab, Tw, y, B, stream);
+      return fourstep::launch<64, false>(x, tab, Tw, y, B, stream);
     case 64 * 2 + 1:
-      return fused::launch<64, true>(x, tab, Tw, y, B, stream);
+      return fourstep::launch<64, true>(x, tab, Tw, y, B, stream);
     case 128 * 2:
-      return fused::launch<128, false>(x, tab, Tw, y, B, stream);
+      return fourstep::launch<128, false>(x, tab, Tw, y, B, stream);
     case 128 * 2 + 1:
-      return fused::launch<128, true>(x, tab, Tw, y, B, stream);
+      return fourstep::launch<128, true>(x, tab, Tw, y, B, stream);
     default:
       return -1;
   }

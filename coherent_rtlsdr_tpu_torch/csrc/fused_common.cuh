@@ -1,5 +1,6 @@
-// Shared device helpers of the hand-written kernels (fused_measure.cu,
-// fused_apply.cu, fourstep.cu; probe_copy.cu needs none of them).
+// Shared device helpers of the measure and apply kernels (fused_measure.cu,
+// fused_apply.cu). fourstep.cu runs its products on the tensor cores with
+// tc_common.cuh and uses none of these; probe_copy.cu needs none either.
 //
 // Layouts (W = m*m, m in {64, 128}):
 //   * a stream block is int8 [m/2, 2m]: row r holds samples [r*m, (r+1)*m)
@@ -11,9 +12,11 @@
 //     F and conj(F)/m hold bf16-rounded values (the JAX kernels cast them to
 //     bf16), the twiddle T is full float32.
 //
-// Every complex matrix product takes bf16-valued operands and accumulates in
-// float32 on the SIMT FMA units: a product of two bf16 values is exact in
-// float32, so this equals the TPU's bf16/f32 matmul up to summation order.
+// Every complex matrix product here takes bf16-valued operands and
+// accumulates in float32 on the SIMT FMA units: a product of two bf16 values
+// is exact in float32, so this equals the TPU's bf16/f32 matmul up to
+// summation order. These kernels can move onto the tensor cores with
+// tc_common.cuh, as fourstep.cu did.
 
 #pragma once
 

@@ -34,7 +34,7 @@ class BlockCopy:
 
     def copy(self, x: torch.Tensor, nc: int = 1) -> torch.Tensor:
         """A new tensor equal to ``x``; on the card ``nc`` channels a CTA
-        (N a multiple of nc)."""
+        (N a multiple of nc), from a contiguous, 16-byte aligned ``x``."""
         if x.is_cuda:
             from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 

@@ -7,6 +7,13 @@ float32-accumulate products as ``FFT4Step(precision="bf16")``, which is its
 plain version. A CPU tensor runs the plain version; a CUDA tensor launches
 ``csrc/fourstep.cu`` (bound in ``kernels/fused_cuda.py``) or raises. The
 instance counts forward and inverse launches and plain runs apart.
+
+The kernel runs both products on the tensor cores (``mma.sync`` bf16 ->
+f32), each complex product as four real ones, from the packed bf16 tables
+that ``packed_tables`` builds once an instance; the inverse runs transposed
+(C^T = Fi G^T, x^T = B^T Fi), which F, Fi and the twiddle being symmetric
+allows. A persistent grid of one CTA an SM walks the batch while producer
+warps stream the next window in (see the note in ``csrc/fourstep.cu``).
 """
 
 import functools
@@ -19,6 +26,15 @@ from coherent_rtlsdr_tpu_torch.kernels.fused import resolve_device
 COUNTS = ("fft_launches", "ifft_launches", "fft_plain_runs", "ifft_plain_runs")
 
 
+def packed_tables(fft: FFT4Step):
+    """The kernel's tables from a bf16 ``FFT4Step``: F and Fi = conj(F)/m
+    as bf16 ``[2, m, m]`` (re, im) planes, the same values as its
+    bf16-rounded tables. (The float32 twiddle is the one the measure and
+    apply kernels take, ``fused_cuda._tables``.)"""
+    plane = lambda re, im: torch.stack([re, im]).to(torch.bfloat16).contiguous()
+    return plane(fft.fre, fft.fim), plane(fft.fire, fft.fiim)
+
+
 class FFT4StepKernel:
     """Transform pair for one ``fft_len = m*m`` on one device."""
 
@@ -27,6 +43,7 @@ class FFT4StepKernel:
         self.fft_len = fft_len
         self.m = self.plain.m
         self.device = self.plain.device
+        self.f_packed, self.fi_packed = packed_tables(self.plain)
         self.reset_counts()
 
     def reset_counts(self):
@@ -39,11 +56,14 @@ class FFT4StepKernel:
         return {name: getattr(self, name) for name in COUNTS}
 
     def _batch(self, x: torch.Tensor) -> torch.Tensor:
-        """``[..., W]`` or ``[..., m, m]`` -> complex64 ``[B, m, m]``."""
+        """``[..., W]`` or ``[..., m, m]`` -> complex64 ``[B, m, m]``,
+        contiguous and 16-byte aligned as the kernel takes it (a view that
+        is not is copied)."""
         m = self.m
         if x.shape[-1] == self.fft_len:
             x = x.reshape(*x.shape[:-1], m, m)
-        return x.to(torch.complex64).reshape(-1, m, m)
+        x = x.to(torch.complex64).reshape(-1, m, m).contiguous()
+        return x.clone() if x.data_ptr() % 16 else x
 
     def _run(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         if x.is_cuda:

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_measure.cu", "fused_apply.cu", "fourstep.cu", "probe_copy.cu")
-HEADERS = ("fused_common.cuh",)
+HEADERS = ("fused_common.cuh", "tc_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_M = (64, 128)
@@ -130,6 +130,14 @@ def _aligned(*xs):
     16-byte vectors from each base): a view that is neither is copied."""
     out = [x.contiguous() for x in xs]
     return [x.clone() if x.data_ptr() % 16 else x for x in out]
+
+
+def _dense(name, x: torch.Tensor):
+    """Raise unless ``x`` is contiguous and 16-byte aligned (the four-step
+    and copy kernels take no view)."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: need a contiguous tensor on a 16-byte boundary, got "
+                         f"strides {x.stride()} at address {x.data_ptr():#x}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -297,16 +305,23 @@ def apply_planes(k, pre, pim, advance):
 
 def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Launch ``fourstep_fft`` on ``x`` complex64 ``[B, m, m]`` (see
-    ``FFT4StepKernel``); returns complex64 ``[B, m, m]``."""
-    fns, (F, Fi, Tw), stream = _setup(k, x, k.plain)
+    ``FFT4StepKernel``), with the instance's packed bf16 table of F or Fi
+    and the float32 twiddle of its plain version; returns complex64
+    ``[B, m, m]``."""
+    fns, (_, _, Tw), stream = _setup(k, x, k.plain)
     m, dev = k.m, x.device
     B = x.shape[0]
+    if B < 1:
+        raise ValueError("fourstep_fft: need at least one transform")
     _expect(x, "x", torch.complex64, (B, m, m), dev)
-    (x,) = _aligned(x)
+    tab = k.fi_packed if inverse else k.f_packed
+    _expect(tab, "table", torch.bfloat16, (2, m, m), dev)
+    for name, v in (("x", x), ("table", tab), ("twiddle", Tw)):
+        _dense(name, v)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
-        rc = fns["fourstep_fft"](x.data_ptr(), (Fi if inverse else F).data_ptr(),
-                                 Tw.data_ptr(), y.data_ptr(), B, m, int(inverse), stream)
+        rc = fns["fourstep_fft"](x.data_ptr(), tab.data_ptr(), Tw.data_ptr(), y.data_ptr(), B, m,
+                                 int(inverse), stream)
     _check("fourstep_fft", rc)
     if inverse:
         k.ifft_launches += 1
@@ -316,8 +331,9 @@ def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def copy_blocks(c, x: torch.Tensor, nc: int) -> torch.Tensor:
-    """Launch ``probe_copy_blocks`` on ``x`` int8 ``[T, N, m/2, 2m]`` with
-    ``nc`` channels a CTA (see ``BlockCopy.copy``); returns the copy."""
+    """Launch ``probe_copy_blocks`` on ``x`` int8 ``[T, N, m/2, 2m]``
+    (contiguous, 16-byte aligned) with ``nc`` channels a CTA (see
+    ``BlockCopy.copy``); returns the copy."""
     if x.dtype != torch.int8 or x.dim() != 4 or x.shape[3] != 4 * x.shape[2]:
         raise ValueError(f"copy_blocks: need int8 [T, N, m/2, 2m], got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -327,7 +343,7 @@ def copy_blocks(c, x: torch.Tensor, nc: int) -> torch.Tensor:
         raise ValueError(f"copy_blocks: need T >= 1, N a multiple of nc and m*m a multiple "
                          f"of 16, got T = {T}, N = {N}, nc = {nc}, m*m = {W}")
     fns = _functions()
-    (x,) = _aligned(x)
+    _dense("copy_blocks", x)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = fns["probe_copy_blocks"](x.data_ptr(), y.data_ptr(), T, N, W, nc,

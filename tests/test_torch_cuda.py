@@ -247,3 +247,66 @@ def test_copy_blocks_bit_equal_on_card(nc, cuda_device):
     torch.cuda.synchronize()
     assert c.counts() == dict(copy_launches=1, copy_plain_runs=0)
     assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("B", [1, 131, 133, 397])
+@pytest.mark.parametrize("m", [64, 128])
+def test_fourstep_persistent_grid_matches_plain_on_card(m, B, inverse, cuda_device):
+    """Batches below, just above and several times the persistent grid of
+    132 SMs, with a ragged last round."""
+    k = FFT4StepKernel(m * m, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    x = torch.complex(torch.randn((B, m * m), generator=g, device=cuda_device),
+                      torch.randn((B, m * m), generator=g, device=cuda_device))
+    X = torch.fft.fft(x).reshape(B, m, m).transpose(-1, -2)   # natural -> (k2, k1)
+    got, want, lib = (k.ifft(X), k.ifft_plain(X), x) if inverse else (k.fft(x), k.fft_plain(x), X)
+    torch.cuda.synchronize()
+    assert k.ifft_launches + k.fft_launches == 1
+    rel = lambda a, b: ((a - b).reshape(B, -1).abs().amax(1)
+                        / b.reshape(B, -1).abs().amax(1))
+    # Every transform of the batch, not only the largest, within the bars.
+    assert (rel(got, want) <= 1e-3).all()
+    assert (rel(got, lib) < 3e-2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 3, 7])
+@pytest.mark.parametrize("T_blocks", [1, 3])
+def test_copy_blocks_small_batches_bit_equal_on_card(T_blocks, nc, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(10 * T_blocks + nc)
+    x = torch.randint(-128, 128, (T_blocks, 21, 64, 256), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    c = BlockCopy()
+    y = c.copy(x, nc)
+    torch.cuda.synchronize()
+    assert c.counts() == dict(copy_launches=1, copy_plain_runs=0)
+    assert torch.equal(y, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["misaligned", "non_contiguous"])
+@pytest.mark.parametrize("kernel", ["fourstep", "copy_blocks"])
+def test_wrappers_raise_on_views_on_card(kernel, view, cuda_device):
+    """The four-step and copy wrappers take no view: a base off a 16-byte
+    boundary or a non-contiguous tensor raises before any launch."""
+    from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+
+    m = 64
+    if kernel == "fourstep":
+        k = FFT4StepKernel(m * m, cuda_device)
+        flat = torch.zeros(2 * m * m + 1, dtype=torch.complex64, device=cuda_device)
+        x = (flat[1:].view(2, m, m) if view == "misaligned"
+             else flat[:-1].view(2, m, m).transpose(-1, -2))
+        with pytest.raises(ValueError):
+            fused_cuda.fourstep(k, x, inverse=False)
+        assert k.counts()["fft_launches"] == 0
+    else:
+        c = BlockCopy()
+        flat = torch.zeros(2 * 21 * m * m + 16, dtype=torch.int8, device=cuda_device)
+        x = (flat[8:8 + 2 * 21 * m * m].view(2, 21, m // 2, 2 * m) if view == "misaligned"
+             else flat[:2 * 21 * m * m].view(21, 2, m // 2, 2 * m).transpose(0, 1))
+        with pytest.raises(ValueError):
+            c.copy(x, 1)
+        assert c.counts()["copy_launches"] == 0
