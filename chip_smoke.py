@@ -55,13 +55,14 @@ probe with its block copy:
      over runs of launches.
 
 Every phase prints one JSON line; a failed check raises, so the exit code is
-not 0. Before the last line it prints the ptxas report of the four-step
-kernel (registers, spills, stack), the card's name and power limit and a
-JSON summary of the nine kernels (times, launches, errors, and the bound
-from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and bf16
-operations over 989 TFLOP/s); the last line is ``{"ok": true, "device":
-{...}}``. Needs a CUDA device and the repository's package next to this
-file.
+not 0. Before the last line it prints the ptxas report of every kernel
+(registers, stack, spills; the six tensor-core i8 measure instantiations
+must use no stack), the card's name and power limit
+and a JSON summary of the nine kernels (times, launches, errors, and the
+bound from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and
+bf16 operations over 989 TFLOP/s); the last line is ``{"ok": true,
+"device": {...}}``. Needs a CUDA device and the repository's package next
+to this file.
 """
 
 import json
@@ -542,10 +543,8 @@ def main():
 
     # 1. Device and build.
     report = fused_cuda.build()
-    regs = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for src, log in report.items() if src != "seconds"}
     emit(dict(phase="device_and_build", card=smi, torch=torch.__version__,
-              cuda=torch.version.cuda, nvcc_build_s=report["seconds"], ptxas=regs))
+              cuda=torch.version.cuda, nvcc_build_s=report["seconds"]))
 
     # 2. Kernel against plain version.
     emit(dict(phase="kernel_vs_plain", card=smi, results=phase_kernels(dev)))
@@ -936,9 +935,16 @@ def main():
     fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"])
-    emit(dict(phase="fourstep_ptxas", lines=[
-        ln.strip() for ln in report.get("fourstep.cu", "not compiled in this run").splitlines()
-        if any(w in ln for w in ("registers", "spill", "stack", "not compiled"))]))
+    # Registers, stack and spills of every kernel; the six tensor-core
+    # measure instantiations must use no stack.
+    ptxas = {src: fused_cuda.ptxas_usage(report[src]) for src in fused_cuda.SOURCES}
+    emit(dict(phase="ptxas", **ptxas))
+    measure_ptxas = {name: ptxas["fused_measure.cu"].get(name)
+                     for name in fused_cuda.TC_MEASURE_KERNELS}
+    spilled = [name for name, u in measure_ptxas.items()
+               if u is None or u["stack"] or u["spill_stores"] or u["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"measure kernels with stack or spills (or no report): {spilled}")
     print(smi, flush=True)
     emit({"kernels": [
         entry("fused_measure_ref", "fused_measure.cu", tpu + "pallas_fused.py:356",

@@ -47,10 +47,6 @@ namespace fourstep {
 
 constexpr int kProducerWarps = 4;
 constexpr int kLoadUnroll = 8;  // 16-byte loads in flight a producer thread
-// Columns a product handles at once (kChunk / 8 n8 tiles of accumulators):
-// 32 keeps a consumer thread at ~150 registers, under the 168 that 384
-// threads an SM leave, where 64 spilled.
-constexpr int kChunk = 32;
 constexpr int kStageStride = 36;  // floats a staged row: 16 complex + 4 padding
 constexpr int kFull = 1;          // named barriers kFull + s: window s is loaded
 constexpr int kEmpty = 3;         // kEmpty + s: window s may be overwritten
@@ -66,17 +62,6 @@ struct Plan {
   static constexpr size_t kBytes = 6 * kPlane * sizeof(__nv_bfloat16) +
                                    kConsumerWarps * 8 * kStageStride * sizeof(float);
 };
-
-// B * T (forward) or C * conj(T) (inverse), each product rounded on its own
-// as the plain version's elementwise ops round.
-template <bool CONJ>
-__device__ __forceinline__ float2 twiddle(float re, float im, float tr, float ti) {
-  if (CONJ)
-    return make_float2(__fadd_rn(__fmul_rn(re, tr), __fmul_rn(im, ti)),
-                       __fsub_rn(__fmul_rn(im, tr), __fmul_rn(re, ti)));
-  return make_float2(__fsub_rn(__fmul_rn(re, tr), __fmul_rn(im, ti)),
-                     __fadd_rn(__fmul_rn(re, ti), __fmul_rn(im, tr)));
-}
 
 // Producer warps: window j of this CTA (transform blockIdx.x + j gridDim.x)
 // into buffer j % 2 as swizzled bf16 planes [row][col] of the [m, m] input.
@@ -120,9 +105,10 @@ __device__ __forceinline__ void consume(const __nv_bfloat16* tab, const __nv_bfl
                                         float* stage, const float2* __restrict__ Tw,
                                         float2* __restrict__ y, int n_local) {
   using P = Plan<M>;
+  using tc::kChunk;
   constexpr int KS = M / 16;       // k steps of 16
   constexpr int NCH = M / kChunk;  // column chunks
-  constexpr int NT = kChunk / 8;   // n8 tiles a chunk
+  constexpr int NT = tc::kChunkTiles;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int warp = threadIdx.x >> 5;
@@ -145,47 +131,8 @@ __device__ __forceinline__ void consume(const __nv_bfloat16* tab, const __nv_bfl
 #pragma unroll
     for (int cc = 0; cc < NCH; ++cc) {
       float are[NT][4], aim[NT][4];
-#pragma unroll
-      for (int i = 0; i < NT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) are[i][e] = aim[i][e] = 0.f;
-#pragma unroll 1
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t lre[4], lim[4], lnim[4];
-        tc::ldsm_a<M>(tre, r0, ks * 16, lre);
-        tc::ldsm_a<M>(tim, r0, ks * 16, lim);
-        tc::negate(lim, lnim);
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          const int n0 = cc * kChunk + p * 16;
-          uint32_t bre[4], bim[4];
-          if constexpr (INVERSE) {
-            tc::ldsm_b<M>(wre, n0, ks * 16, bre);
-            tc::ldsm_b<M>(wim, n0, ks * 16, bim);
-          } else {
-            tc::ldsm_b_trans<M>(wre, n0, ks * 16, bre);
-            tc::ldsm_b_trans<M>(wim, n0, ks * 16, bim);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            tc::cmma(are[2 * p + h], aim[2 * p + h], lre, lim, lnim, bre[2 * h], bre[2 * h + 1],
-                     bim[2 * h], bim[2 * h + 1]);
-        }
-      }
-#pragma unroll
-      for (int jt = 0; jt < NT; ++jt) {
-        const int c = cc * kChunk + jt * 8 + 2 * t;
-        const int kt = cc * NT + jt;  // n8 tile index across the strip
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = r0 + g + 8 * hh;
-          const float4 tw = __ldg(reinterpret_cast<const float4*>(Tw + r * M + c));
-          const float2 v0 = twiddle<INVERSE>(are[jt][2 * hh], aim[jt][2 * hh], tw.x, tw.y);
-          const float2 v1 = twiddle<INVERSE>(are[jt][2 * hh + 1], aim[jt][2 * hh + 1], tw.z, tw.w);
-          cre[kt / 2][(kt & 1) * 2 + hh] = tc::pack_bf16(v0.x, v1.x);
-          cim[kt / 2][(kt & 1) * 2 + hh] = tc::pack_bf16(v0.y, v1.y);
-        }
-      }
+      tc::strip_product<M, !INVERSE>(tre, tim, r0, wre, wim, cc, are, aim);
+      tc::twiddle_to_a<M, INVERSE>(are, aim, Tw, r0, cc, cre, cim);
     }
     // The window is consumed: the producers may refill its buffer.
     if (j + 2 < n_local) tc::bar_arrive(kEmpty + s, P::kThreads);
@@ -194,25 +141,7 @@ __device__ __forceinline__ void consume(const __nv_bfloat16* tab, const __nv_bfl
 #pragma unroll 1
     for (int cc = 0; cc < NCH; ++cc) {
       float dre[NT][4], dim[NT][4];
-#pragma unroll
-      for (int i = 0; i < NT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dre[i][e] = dim[i][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ncim[4];
-        tc::negate(cim[kk], ncim);
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          uint32_t bre[4], bim[4];
-          tc::ldsm_b<M>(tre, cc * kChunk + p * 16, kk * 16, bre);
-          tc::ldsm_b<M>(tim, cc * kChunk + p * 16, kk * 16, bim);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            tc::cmma(dre[2 * p + h], dim[2 * p + h], cre[kk], cim[kk], ncim, bre[2 * h],
-                     bre[2 * h + 1], bim[2 * h], bim[2 * h + 1]);
-        }
-      }
+      tc::strip_product_a<M>(cre, cim, tre, tim, cc, dre, dim);
 #pragma unroll
       for (int jt = 0; jt < NT; ++jt) {
         const int c = cc * kChunk + jt * 8 + 2 * t;

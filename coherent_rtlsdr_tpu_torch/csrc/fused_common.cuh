@@ -13,10 +13,14 @@
 //     bf16), the twiddle T is full float32.
 //
 // Every complex matrix product here takes bf16-valued operands and
-// accumulates in float32 on the SIMT FMA units: a product of two bf16 values
-// is exact in float32, so this equals the TPU's bf16/f32 matmul up to
-// summation order. These kernels can move onto the tensor cores with
-// tc_common.cuh, as fourstep.cu did.
+// accumulates in float32, as the TPU's bf16/f32 matmul does (a product of
+// two bf16 values is exact in float32), so the kernels equal it up to
+// summation order. Two forms of the forward transform:
+//   * forward_tc, on the tensor cores (tc_common.cuh, the strip design of
+//     fourstep.cu's forward consumer): the i8 measure kernels
+//     (measure_ref_kernel, measure_kernel);
+//   * forward_fft / inverse_fft on cmatmul, the SIMT FMA units: the float
+//     measure kernel and the three apply kernels, until they move too.
 
 #pragma once
 
@@ -24,9 +28,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace fused {
 
-constexpr int kThreads = 256;                    // a 16 x 16 thread grid
+constexpr int kThreads = 256;                    // a 16 x 16 thread grid (SIMT kernels)
 constexpr float kTwoPi = 6.283185307179586f;     // float32(2*pi)
 
 // Lets `kernel` be launched with `bytes` of dynamic shared memory (above
@@ -57,9 +63,10 @@ __device__ __forceinline__ float signed_freq(uint32_t k) {
   return static_cast<float>(ks) * (1.0f / W);
 }
 
-// Sum over the block, the same value returned to every thread. The order of
-// the sum is fixed, so the result is deterministic. `red` holds
-// kThreads/32 floats of shared memory.
+// Sum over a block of NT threads, the same value returned to every thread.
+// The order of the sum is fixed, so the result is deterministic. `red` holds
+// NT/32 floats of shared memory.
+template <int NT>
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -68,7 +75,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float s = 0.f;
 #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  for (int w = 0; w < NT / 32; ++w) s += red[w];
   return s;
 }
 
@@ -218,6 +225,117 @@ __device__ __forceinline__ void inverse_fft(SmemBf16Matrix<M> G, SmemBf16Matrix<
       [&](int r, int k) { return Fi[k * M + r0 + r]; },
       [&](int k, int c) { return B.get(k, c); },
       y_epi);
+}
+
+// --- The tensor-core forward transform of the i8 measure kernels. One CTA a
+// window of kTcThreads<M> threads, m / 16 warps: warp w owns the 16-row
+// strip 16w..16w+15 of both products.
+template <int M>
+constexpr int kTcThreads = 2 * M;
+
+// F (interleaved float32 [m, m], bf16-exact values, so the conversion is
+// exact) into swizzled bf16 re / im planes at `tab` (2 m^2 elements).
+template <int M>
+__device__ __forceinline__ void load_table(const float2* __restrict__ F, __nv_bfloat16* tab) {
+  constexpr int kChunks = M * M / 8;  // 8 elements, 16 bytes of a plane
+  for (int q = threadIdx.x; q < kChunks; q += kTcThreads<M>) {
+    const int r = q / (M / 8);
+    const int c = (q % (M / 8)) * 8;
+    const float4* src = reinterpret_cast<const float4*>(F + r * M + c);
+    uint32_t re[4], im[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = __ldg(src + i);  // elements c + 2i, c + 2i + 1
+      re[i] = tc::pack_bf16(v.x, v.z);
+      im[i] = tc::pack_bf16(v.y, v.w);
+    }
+    const int o = tc::swz<M>(r, c);
+    *reinterpret_cast<uint4*>(tab + o) = make_uint4(re[0], re[1], re[2], re[3]);
+    *reinterpret_cast<uint4*>(tab + M * M + o) = make_uint4(im[0], im[1], im[2], im[3]);
+  }
+}
+
+// Signed byte k (0..3, little-endian) of a 32-bit word, as a float.
+__device__ __forceinline__ float sbyte(int x, int k) {
+  return static_cast<float>(static_cast<signed char>(x >> (8 * k)));
+}
+
+// The window of the i8 path into swizzled bf16 re / im planes at `win` (2 m^2
+// elements): rows 0..m/2-1 from the int8 block `top`, rows m/2..m-1 from
+// `top + next`; A = bf16(float(i8) * (1/127)), load_i8's rounding. 16 bytes
+// (8 samples) a load, all of a thread's loads in flight at once.
+template <int M>
+__device__ __forceinline__ void load_window_i8(const int8_t* __restrict__ top, size_t next,
+                                               __nv_bfloat16* win) {
+  constexpr float kScale = static_cast<float>(1.0 / 127.0);
+  constexpr int kThreads = kTcThreads<M>;
+  constexpr int kVec = M * M / 16;  // vectors a half-window (m*m contiguous bytes)
+  constexpr int kSteps = 2 * kVec / kThreads;
+  static_assert(2 * kVec % kThreads == 0, "whole rounds only");
+  int4 v[kSteps];
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int w = threadIdx.x + u * kThreads;
+    const int half = w / kVec;
+    v[u] = __ldg(reinterpret_cast<const int4*>(top + half * next) + (w - half * kVec));
+  }
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    // Vector w holds samples 8w..8w+7 of the window: row 8w / m, columns
+    // from (8w) % m, one 16-byte chunk of each plane.
+    // Word j holds I Q I Q of samples 2j, 2j + 1.
+    const int s = 8 * (threadIdx.x + u * kThreads);
+    const int words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+    uint32_t re[4], im[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x = words[j];
+      re[j] = tc::pack_bf16(sbyte(x, 0) * kScale, sbyte(x, 2) * kScale);
+      im[j] = tc::pack_bf16(sbyte(x, 1) * kScale, sbyte(x, 3) * kScale);
+    }
+    const int o = tc::swz<M>(s / M, s % M);
+    *reinterpret_cast<uint4*>(win + o) = make_uint4(re[0], re[1], re[2], re[3]);
+    *reinterpret_cast<uint4*>(win + M * M + o) = make_uint4(im[0], im[1], im[2], im[3]);
+  }
+}
+
+// Forward four-step of the window at `win` (swizzled bf16 re / im planes of
+// A[n2][n1]) with the table at `tab` (F re / im planes), on the tensor cores;
+// every thread of the CTA calls it after a barrier behind the loads. Warp w:
+//   B = F A on its rows r of F (ldmatrix A fragments) and every row of the
+//   window (transposed ldmatrix B fragments); C = bf16(B * T) in registers,
+//   the twiddle T (float32) read from L2; then a CTA barrier, after which
+//   the window's buffer may be overwritten; then D = C F with C as the A
+//   fragments. Each finished pair of D elements (r, c), (r, c + 1), c even,
+//   is handed to epi(r, c, float4(re_c, im_c, re_c+1, im_c+1)).
+template <int M, class Epi>
+__device__ __forceinline__ void forward_tc(const __nv_bfloat16* tab, const __nv_bfloat16* win,
+                                           const float2* __restrict__ Tw, Epi epi) {
+  constexpr int NT = tc::kChunkTiles;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  uint32_t cre[M / 16][4], cim[M / 16][4];
+#pragma unroll
+  for (int cc = 0; cc < M / tc::kChunk; ++cc) {
+    float are[NT][4], aim[NT][4];
+    tc::strip_product<M, true>(tab, tab + M * M, r0, win, win + M * M, cc, are, aim);
+    tc::twiddle_to_a<M, false>(are, aim, Tw, r0, cc, cre, cim);
+  }
+  // Every warp has read the whole window.
+  __syncthreads();
+#pragma unroll 1
+  for (int cc = 0; cc < M / tc::kChunk; ++cc) {
+    float dre[NT][4], dim[NT][4];
+    tc::strip_product_a<M>(cre, cim, tab, tab + M * M, cc, dre, dim);
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        epi(r0 + g + 8 * hh, cc * tc::kChunk + jt * 8 + 2 * t,
+            make_float4(dre[jt][2 * hh], dim[jt][2 * hh], dre[jt][2 * hh + 1],
+                        dim[jt][2 * hh + 1]));
+  }
 }
 
 }  // namespace fused

@@ -15,32 +15,56 @@
 // Plain PyTorch versions: coherent_rtlsdr_tpu_torch/kernels/fused.py
 // (measure_ref_plain, measure_spec_plain, measure_i8_plain, measure_plain).
 //
-// Design. One CTA of 256 threads per (window t, channel n). On the TPU one
+// Design of the i8 kernels (measure_ref_kernel, measure_kernel). One CTA a
+// window: (t) for the reference, (n, t) for the channels. On the TPU one
 // grid step carried the reference spectrum R across its channels; CUDA
-// blocks share nothing, so on the i8 path a first kernel, the same transform
-// in reference mode (fused_measure_ref), writes R (float32) and its energy
-// per window, and the channel kernel reads them; on the float path R comes
-// from the caller as bf16 planes. What bounds the kernels on the H100: the
-// four real m^3 products of each transform (2 x 16.8 MFLOP a window at
-// m = 128) run on the SIMT FMA units, so they are compute-bound at ~2 FMA
-// per shared-memory load; the bytes (32 kB of window in, 64 kB of D out on
-// the handoff path and none on the recompute path, 128 kB of R read from
-// L2) are small beside that. Everything
-// between the window and the scalars stays in shared memory, 197,152 bytes
-// at m = 128:
+// blocks share nothing, so a first kernel, the same transform in reference
+// mode (fused_measure_ref), writes R (float32) and its energy per window,
+// and the channel kernel reads them from L2. What bounds them on the H100:
+// the four real m^3 products of each of the two complex products (33.6
+// MFLOP a window at m = 128, 0.18 ms over 5,355 windows at the bf16
+// tensor-core peak) against 32 kB of window in, 128 kB of R read and 64 kB
+// of D out (handoff) a window. The products run on the tensor cores
+// (forward_tc in fused_common.cuh: mma.sync m16n8k16 bf16 -> f32, a warp a
+// 16-row strip, the first product's twiddled bf16 result kept in registers
+// as the second's A fragments), m / 16 warps a CTA. The epilogue works on
+// the accumulators: D stored as bf16 (STORE_D), G = D conj(R) into shared
+// float32, or R and its energy (reference mode). The phase zoom and the
+// scalars then run on the SIMT units as before. Shared memory, 196,640
+// bytes at m = 128:
+//   table (2 m^2 bf16):  F as swizzled re / im planes; after the second
+//                        product, the phase zoom's aux scratch
+//   window (m^2 float2): the window as swizzled bf16 re / im planes, then
+//                        (after forward_tc's barrier) G
+// The load has no overlap with the products, and the grid is one CTA a
+// window: a persistent grid with a double-buffered producer (fourstep.cu),
+// TMA or wgmma is later work.
+//
+// The float kernel (measure_planes_kernel) keeps the SIMT forward_fft: one
+// CTA of 256 threads per (t, n), its products on the FMA units, 197,152
+// bytes of shared memory at m = 128:
 //   region A (m*m float2):  the window A, then G = D conj(R)
 //   region C (m*(m+1) bf16x2): C = bf16(B * T), then the band sums
-// Tensor-core products (mma/wgmma) and pipelined loads are later work.
 
 #include "fused_common.cuh"
 
 namespace fused {
 
+// Shared memory of the float kernel (SIMT, kThreads threads).
 template <int M>
 struct MeasureSmem {
   static constexpr size_t kRegionA = sizeof(float2) * M * M;
   static constexpr size_t kRegionC = SmemBf16Matrix<M>::kBytes;
   static constexpr size_t kBytes = kRegionA + kRegionC + sizeof(float) * (kThreads / 32);
+};
+
+// Shared memory of the i8 kernels (tensor cores, kTcThreads<M> threads).
+template <int M>
+struct TcMeasureSmem {
+  static constexpr size_t kTable = 2 * sizeof(__nv_bfloat16) * M * M;
+  static constexpr size_t kWindow = sizeof(float2) * M * M;
+  static constexpr size_t kBytes = kTable + kWindow + sizeof(float) * (kTcThreads<M> / 32);
+  static_assert(sizeof(float2) * M * M / 8 <= kTable, "phase_zoom's aux fits in the table");
 };
 
 struct ZoomResult {
@@ -49,14 +73,16 @@ struct ZoomResult {
 
 // The two-stage banded phase-slope estimator (_phase_zoom_core) on the
 // permuted cross-spectrum G (float2 [m*m], shared), which it deramps in
-// place. aux is region C (free again), red the block_sum scratch.
-template <int M>
+// place, run by a block of NT threads (NT a multiple of m). aux is free
+// shared scratch of m*m/8 float2, red the block_sum scratch.
+template <int M, int NT>
 __device__ __forceinline__ ZoomResult phase_zoom(float2* G, float2* aux, float* red) {
+  static_assert(NT % M == 0 && NT % 32 == 0, "whole columns and warps");
   constexpr int W = M * M;
   // --- stage 1: 8-bin bands are row groups of 8 within a column (band
   // b = k1*(m/8) + j); g1[j][k1] in aux.
   float2* g1 = aux;
-  for (int i = threadIdx.x; i < (M / 8) * M; i += kThreads) {
+  for (int i = threadIdx.x; i < (M / 8) * M; i += NT) {
     const int j = i / M;
     const int c = i % M;
     float sr = 0.f, si = 0.f;
@@ -73,7 +99,7 @@ __device__ __forceinline__ ZoomResult phase_zoom(float2* G, float2* aux, float* 
   // across the column boundary (m/8-1, k1-1) -> (0, k1) for j = 0, except at
   // the Nyquist straddle k1 - 1 = m/2 - 1.
   float s1re = 0.f, s1im = 0.f;
-  for (int i = threadIdx.x; i < (M / 8) * M; i += kThreads) {
+  for (int i = threadIdx.x; i < (M / 8) * M; i += NT) {
     const int j = i / M;
     const int c = i % M;
     float2 prev;
@@ -88,26 +114,28 @@ __device__ __forceinline__ ZoomResult phase_zoom(float2* G, float2* aux, float* 
     s1re += cur.x * prev.x + cur.y * prev.y;
     s1im += cur.y * prev.x - cur.x * prev.y;
   }
-  s1re = block_sum(s1re, red);
-  s1im = block_sum(s1im, red);
+  s1re = block_sum<NT>(s1re, red);
+  s1im = block_sum<NT>(s1im, red);
   constexpr float kStage1 = static_cast<float>((W / 8) / 6.283185307179586);
   const float int_lag = rintf(-atan2f(s1im, s1re) * kStage1);
 
   // --- stage 2: deramp G by the integer lag, in place.
   const int neg_lag = -static_cast<int>(int_lag);
-  for (int i = threadIdx.x; i < M * M; i += kThreads) {
+  for (int i = threadIdx.x; i < M * M; i += NT) {
     const int r = i / M;
     const int c = i % M;
-    const float ph = iramp_fraction<W>(static_cast<uint32_t>(r + M * c), neg_lag) * kTwoPi;
+    // sin / cos of 2 pi f, f in [0, 1), in units of pi: the exact argument
+    // reduction of sincospif needs no stack, where sincosf's general one
+    // keeps a local array.
     float s, co;
-    sincosf(ph, &s, &co);
+    sincospif(2.f * iramp_fraction<W>(static_cast<uint32_t>(r + M * c), neg_lag), &s, &co);
     const float2 g = G[i];
     G[i] = make_float2(g.x * co + g.y * s, g.y * co - g.x * s);  // G * (cos - i sin)
   }
   __syncthreads();
   // 2m-bin bands are column pairs: column sums (kP partial sums a column,
   // combined in a fixed order), then pair sums g2[b] = col[2b] + col[2b+1].
-  constexpr int kP = kThreads / M;
+  constexpr int kP = NT / M;
   float2* part = aux;            // [kP][M]
   float2* g2 = aux + kP * M;     // [M/2]
   {
@@ -148,46 +176,46 @@ __device__ __forceinline__ ZoomResult phase_zoom(float2* G, float2* aux, float* 
   const float frac = fminf(fmaxf(-atan2f(s2im, s2re) * kStage2, -4.f), 4.f);
 
   // --- correlation value at the fractional lag: z = sum Gc e^{2 pi i frac f}.
-  const float w = kTwoPi * frac;
+  const float w = 2.f * frac;  // in units of pi
   float zre = 0.f, zim = 0.f;
-  for (int i = threadIdx.x; i < M * M; i += kThreads) {
+  for (int i = threadIdx.x; i < M * M; i += NT) {
     const int r = i / M;
     const int c = i % M;
     float s, co;
-    sincosf(w * signed_freq<W>(static_cast<uint32_t>(r + M * c)), &s, &co);
+    sincospif(w * signed_freq<W>(static_cast<uint32_t>(r + M * c)), &s, &co);
     const float2 g = G[i];
     zre += g.x * co - g.y * s;
     zim += g.x * s + g.y * co;
   }
-  zre = block_sum(zre, red);
-  zim = block_sum(zim, red);
+  zre = block_sum<NT>(zre, red);
+  zim = block_sum<NT>(zim, red);
   return ZoomResult{int_lag + frac, zre, zim};
 }
 
 // Reference mode: one CTA per window t writes R[t] (float2 [m, m]) and
 // eref[t] = sum |R|^2.
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads<M>)
 measure_ref_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict__ F,
                    const float2* __restrict__ Tw, float2* __restrict__ R,
                    float* __restrict__ eref) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* A = reinterpret_cast<float2*>(smem);
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
-  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
+  using S = TcMeasureSmem<M>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tab = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem + S::kTable);
+  float* red = reinterpret_cast<float*>(smem + S::kTable + S::kWindow);
 
   const int t = blockIdx.x;
+  load_table<M>(F, tab);
+  load_window_i8<M>(ref_raw + static_cast<size_t>(t) * M * M, static_cast<size_t>(M) * M, win);
+  __syncthreads();
   float2* Rt = R + static_cast<size_t>(t) * M * M;
   float e = 0.f;
-  forward_fft<M>(
-      [&](float2* a) {
-        load_i8<M>(ref_raw + static_cast<size_t>(t) * M * M, static_cast<size_t>(M) * M, a);
-      },
-      F, Tw, A, C, [&](int r, int c, float dre, float dim) {
-        Rt[r * M + c] = make_float2(dre, dim);
-        e += dre * dre + dim * dim;
-      });
-  e = block_sum(e, red);
+  forward_tc<M>(tab, win, Tw, [&](int r, int c, float4 d) {
+    *reinterpret_cast<float4*>(Rt + r * M + c) = d;
+    e += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
+  });
+  e = block_sum<kTcThreads<M>>(e, red);
   if (threadIdx.x == 0) eref[t] = e;
 }
 
@@ -195,7 +223,7 @@ measure_ref_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict_
 // STORE_D writes D as bf16 to dre_out/dim_out (the handoff pair); without
 // it the stores compile away and the two pointers are not read.
 template <int M, bool STORE_D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads<M>)
 measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
                const float2* __restrict__ Tw, const float2* __restrict__ R,
                const float* __restrict__ eref, float* __restrict__ lag_out,
@@ -203,11 +231,14 @@ measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
                float* __restrict__ mag_out, float* __restrict__ papr_out,
                __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
   constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* G = reinterpret_cast<float2*>(smem);  // region A: A, then G
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
-  float2* aux = reinterpret_cast<float2*>(smem + MeasureSmem<M>::kRegionA);  // region C, reused
-  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
+  constexpr int NT = kTcThreads<M>;
+  using S = TcMeasureSmem<M>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tab = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* win_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kTable);
+  float2* G = reinterpret_cast<float2*>(smem + S::kTable);  // over the window, after its use
+  float2* aux = reinterpret_cast<float2*>(smem);            // over the table, after its use
+  float* red = reinterpret_cast<float*>(smem + S::kTable + S::kWindow);
 
   const int n = blockIdx.x;
   const int N = gridDim.x;
@@ -215,26 +246,31 @@ measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
   const size_t win = static_cast<size_t>(t) * N + n;
   const float2* Rt = R + static_cast<size_t>(t) * M * M;
 
+  load_table<M>(F, tab);
+  load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, win_s);
+  __syncthreads();
+
   // Window spectrum D: stored as bf16 (STORE_D), and G = D conj(R) kept in
   // float32.
   float esig = 0.f, eg = 0.f;
-  forward_fft<M>([&](float2* a) { load_i8<M>(raw + win * W, static_cast<size_t>(N) * W, a); },
-                 F, Tw, G, C, [&](int r, int c, float dre, float dim) {
-                   if constexpr (STORE_D) {
-                     dre_out[win * W + r * M + c] = __float2bfloat16_rn(dre);
-                     dim_out[win * W + r * M + c] = __float2bfloat16_rn(dim);
-                   }
-                   const float2 rr = Rt[r * M + c];
-                   const float gre = dre * rr.x + dim * rr.y;
-                   const float gim = dim * rr.x - dre * rr.y;
-                   G[r * M + c] = make_float2(gre, gim);
-                   esig += dre * dre + dim * dim;
-                   eg += gre * gre + gim * gim;
-                 });
+  forward_tc<M>(tab, win_s, Tw, [&](int r, int c, float4 d) {
+    const size_t o = win * W + r * M + c;
+    if constexpr (STORE_D) {
+      *reinterpret_cast<__nv_bfloat162*>(dre_out + o) = __floats2bfloat162_rn(d.x, d.z);
+      *reinterpret_cast<__nv_bfloat162*>(dim_out + o) = __floats2bfloat162_rn(d.y, d.w);
+    }
+    const float4 rr = __ldg(reinterpret_cast<const float4*>(Rt + r * M + c));
+    const float g0re = d.x * rr.x + d.y * rr.y, g0im = d.y * rr.x - d.x * rr.y;
+    const float g1re = d.z * rr.z + d.w * rr.w, g1im = d.w * rr.z - d.z * rr.w;
+    *reinterpret_cast<float4*>(G + r * M + c) = make_float4(g0re, g0im, g1re, g1im);
+    esig += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
+    eg += g0re * g0re + g0im * g0im + g1re * g1re + g1im * g1im;
+  });
+  __syncthreads();  // G complete; the table is free for aux
 
-  const ZoomResult z = phase_zoom<M>(G, aux, red);
-  esig = block_sum(esig, red);
-  eg = block_sum(eg, red);
+  const ZoomResult z = phase_zoom<M, NT>(G, aux, red);
+  esig = block_sum<NT>(esig, red);
+  eg = block_sum<NT>(eg, red);
 
   if (threadIdx.x == 0) {
     const float zabs = sqrtf(z.zre * z.zre + z.zim * z.zim);
@@ -285,9 +321,9 @@ measure_planes_kernel(const __nv_bfloat16* __restrict__ pre, const __nv_bfloat16
         eg += gre * gre + gim * gim;
       });
 
-  const ZoomResult z = phase_zoom<M>(G, aux, red);
-  esig = block_sum(esig, red);
-  eg = block_sum(eg, red);
+  const ZoomResult z = phase_zoom<M, kThreads>(G, aux, red);
+  esig = block_sum<kThreads>(esig, red);
+  eg = block_sum<kThreads>(eg, red);
 
   if (threadIdx.x == 0) {
     lag_out[win] = z.lag;
@@ -300,10 +336,10 @@ measure_planes_kernel(const __nv_bfloat16* __restrict__ pre, const __nv_bfloat16
 template <int M>
 int launch_ref(const void* ref_raw, const void* F, const void* Tw, void* R, void* eref, int T1,
                void* stream) {
-  const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
+  const int smem = static_cast<int>(TcMeasureSmem<M>::kBytes);
   const cudaError_t err = set_smem(measure_ref_kernel<M>, smem);
   if (err != cudaSuccess) return err;
-  measure_ref_kernel<M><<<T1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  measure_ref_kernel<M><<<T1, kTcThreads<M>, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(ref_raw), static_cast<const float2*>(F),
       static_cast<const float2*>(Tw), static_cast<float2*>(R), static_cast<float*>(eref));
   return cudaGetLastError();
@@ -313,10 +349,11 @@ template <int M, bool STORE_D>
 int launch(const void* raw, const void* F, const void* Tw, const void* R, const void* eref,
            void* lag, void* zre, void* zim, void* mag, void* papr, void* dre, void* dim, int T1,
            int N, void* stream) {
-  const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
+  const int smem = static_cast<int>(TcMeasureSmem<M>::kBytes);
   const cudaError_t err = set_smem(measure_kernel<M, STORE_D>, smem);
   if (err != cudaSuccess) return err;
-  measure_kernel<M, STORE_D><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  measure_kernel<M, STORE_D>
+      <<<dim3(N, T1), kTcThreads<M>, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(raw), static_cast<const float2*>(F),
       static_cast<const float2*>(Tw), static_cast<const float2*>(R),
       static_cast<const float*>(eref), static_cast<float*>(lag), static_cast<float*>(zre),

@@ -1,7 +1,9 @@
-// Tensor-core helpers of the hand-written kernels (today fourstep.cu): bf16
+// Tensor-core helpers of the hand-written kernels (fourstep.cu, and the i8
+// measure kernels of fused_measure.cu through fused_common.cuh): bf16
 // matrices in swizzled shared memory, ldmatrix fragment loads, the
-// mma.sync m16n8k16 bf16 x bf16 -> f32 product, and named barriers between
-// the warps of a warp-specialised block.
+// mma.sync m16n8k16 bf16 x bf16 -> f32 product, the twiddle, the complex
+// products of a warp's 16-row strip, and named barriers between the warps
+// of a warp-specialised block.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 (row-major):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -108,6 +110,124 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void negate(const uint32_t (&a)[4], uint32_t (&n)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) n[i] = a[i] ^ 0x80008000u;
+}
+
+// B * T (forward) or C * conj(T) (inverse) of one complex element against
+// the float32 twiddle (tr, ti), each product rounded on its own as the plain
+// version's elementwise ops round (no FMA contraction).
+template <bool CONJ>
+__device__ __forceinline__ float2 twiddle(float re, float im, float tr, float ti) {
+  if (CONJ)
+    return make_float2(__fadd_rn(__fmul_rn(re, tr), __fmul_rn(im, ti)),
+                       __fsub_rn(__fmul_rn(im, tr), __fmul_rn(re, ti)));
+  return make_float2(__fsub_rn(__fmul_rn(re, tr), __fmul_rn(im, ti)),
+                     __fadd_rn(__fmul_rn(re, ti), __fmul_rn(im, tr)));
+}
+
+// --- The products of a warp's 16-row strip (rows r0..r0+15), a chunk of
+// kChunk output columns at a time. Accumulator (jt, 2 hh + e) of a chunk cc
+// is element (r0 + g + 8 hh, cc kChunk + 8 jt + 2t + e).
+
+// Columns a product handles at once (kChunkTiles n8 tiles of accumulators):
+// 32 keeps a fourstep.cu consumer thread at ~150 registers, under the 168
+// that 384 threads an SM leave, where 64 spilled.
+constexpr int kChunk = 32;
+constexpr int kChunkTiles = kChunk / 8;
+
+// acc = L R over the strip's rows and chunk cc, for complex bf16 matrices
+// in swizzled planes of M columns: L (lre, lim) stored [row][k], read as A
+// fragments; R (rre, rim) stored [k][n] (R_KN, read transposed) or [n][k].
+template <int M, bool R_KN>
+__device__ __forceinline__ void strip_product(const __nv_bfloat16* lre, const __nv_bfloat16* lim,
+                                              int r0, const __nv_bfloat16* rre,
+                                              const __nv_bfloat16* rim, int cc,
+                                              float (&are)[kChunkTiles][4],
+                                              float (&aim)[kChunkTiles][4]) {
+#pragma unroll
+  for (int i = 0; i < kChunkTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) are[i][e] = aim[i][e] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < M / 16; ++ks) {
+    uint32_t fre[4], fim[4], fnim[4];
+    ldsm_a<M>(lre, r0, ks * 16, fre);
+    ldsm_a<M>(lim, r0, ks * 16, fim);
+    negate(fim, fnim);
+#pragma unroll
+    for (int p = 0; p < kChunkTiles / 2; ++p) {
+      const int n0 = cc * kChunk + p * 16;
+      uint32_t bre[4], bim[4];
+      if constexpr (R_KN) {
+        ldsm_b_trans<M>(rre, n0, ks * 16, bre);
+        ldsm_b_trans<M>(rim, n0, ks * 16, bim);
+      } else {
+        ldsm_b<M>(rre, n0, ks * 16, bre);
+        ldsm_b<M>(rim, n0, ks * 16, bim);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        cmma(are[2 * p + h], aim[2 * p + h], fre, fim, fnim, bre[2 * h], bre[2 * h + 1],
+             bim[2 * h], bim[2 * h + 1]);
+    }
+  }
+}
+
+// Chunk cc of strip_product, twiddled (twiddle<CONJ> by T, float32 [M, M],
+// read from L2) and rounded to bf16, into the strip's A fragments (cre, cim)
+// of the next product: the tiles of chunk cc are its k steps 2cc, 2cc + 1.
+template <int M, bool CONJ>
+__device__ __forceinline__ void twiddle_to_a(const float (&are)[kChunkTiles][4],
+                                             const float (&aim)[kChunkTiles][4],
+                                             const float2* __restrict__ Tw, int r0, int cc,
+                                             uint32_t (&cre)[M / 16][4],
+                                             uint32_t (&cim)[M / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int jt = 0; jt < kChunkTiles; ++jt) {
+    const int c = cc * kChunk + jt * 8 + 2 * t;
+    const int kt = cc * kChunkTiles + jt;  // n8 tile index across the strip
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + g + 8 * hh;
+      const float4 tw = __ldg(reinterpret_cast<const float4*>(Tw + r * M + c));
+      const float2 v0 = twiddle<CONJ>(are[jt][2 * hh], aim[jt][2 * hh], tw.x, tw.y);
+      const float2 v1 = twiddle<CONJ>(are[jt][2 * hh + 1], aim[jt][2 * hh + 1], tw.z, tw.w);
+      cre[kt / 2][(kt & 1) * 2 + hh] = pack_bf16(v0.x, v1.x);
+      cim[kt / 2][(kt & 1) * 2 + hh] = pack_bf16(v0.y, v1.y);
+    }
+  }
+}
+
+// acc = C R over the strip and chunk cc, with C the strip's A fragments
+// (cre, cim; M / 16 k steps) and R (rre, rim) a symmetric table read as
+// stored [n][k].
+template <int M>
+__device__ __forceinline__ void strip_product_a(const uint32_t (&cre)[M / 16][4],
+                                                const uint32_t (&cim)[M / 16][4],
+                                                const __nv_bfloat16* rre,
+                                                const __nv_bfloat16* rim, int cc,
+                                                float (&dre)[kChunkTiles][4],
+                                                float (&dim)[kChunkTiles][4]) {
+#pragma unroll
+  for (int i = 0; i < kChunkTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dre[i][e] = dim[i][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < M / 16; ++kk) {
+    uint32_t ncim[4];
+    negate(cim[kk], ncim);
+#pragma unroll
+    for (int p = 0; p < kChunkTiles / 2; ++p) {
+      uint32_t bre[4], bim[4];
+      ldsm_b<M>(rre, cc * kChunk + p * 16, kk * 16, bre);
+      ldsm_b<M>(rim, cc * kChunk + p * 16, kk * 16, bim);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        cmma(dre[2 * p + h], dim[2 * p + h], cre[kk], cim[kk], ncim, bre[2 * h],
+             bre[2 * h + 1], bim[2 * h], bim[2 * h + 1]);
+    }
+  }
 }
 
 // Named barriers (id 1..15; 0 is __syncthreads): `count` threads, a multiple

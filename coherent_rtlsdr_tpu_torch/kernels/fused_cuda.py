@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,13 +51,20 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
+def log_path(source: str) -> Path:
+    """The compiler's output (the ptxas report) kept beside the library."""
+    return library_path(source).with_suffix(".log")
+
+
 def build() -> dict:
-    """Compile every source whose library is missing, one ``nvcc`` each,
-    in parallel. Returns ``{source: ptxas report}`` for what it compiled
-    and ``{"seconds": wall time}``; raises with the compiler's output if any
+    """Compile every source whose library or report is missing, one
+    ``nvcc`` each, in parallel. Returns ``{source: ptxas report}`` for every
+    source (the compiler's output, kept beside its library) and
+    ``{"seconds": wall time}``; raises with the compiler's output if any
     compile fails."""
     t0 = time.perf_counter()
-    todo = [src for src in SOURCES if not library_path(src).exists()]
+    todo = [src for src in SOURCES
+            if not (library_path(src).exists() and log_path(src).exists())]
     nvcc = _nvcc() if todo else None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -67,18 +75,64 @@ def build() -> dict:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         jobs.append((src, out, tmp, proc))
-    report, failed = {}, []
+    failed = []
     for src, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        report[src] = log
         if proc.returncode == 0:
+            log_path(src).write_text(log)
             os.replace(tmp, out)
         else:
             failed.append(f"{src} (exit {proc.returncode}):\n{log}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    report = {src: log_path(src).read_text() for src in SOURCES}
     report["seconds"] = time.perf_counter() - t0
     return report
+
+
+# The i8 measure kernels on the tensor cores, by their ptxas_usage names:
+# {reference, channels with and without the D store} x m.
+TC_MEASURE_KERNELS = tuple(
+    [f"fused::measure_ref_kernel<{m}>" for m in SUPPORTED_M]
+    + [f"fused::measure_kernel<{m}, {d}>" for m in SUPPORTED_M for d in (1, 0)])
+
+
+def _kernel_name(mangled: str) -> str:
+    """``ns::name<1, 2>`` for the Itanium-mangled name of a function
+    template in a namespace with integer or bool arguments (every kernel
+    here); any other name as it is."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    parts, i = [], 3
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group()
+        i += len(n)
+        parts.append(mangled[i:i + int(n)])
+        i += int(n)
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
+    if args is None:
+        return "::".join(parts)
+    return "::".join(parts) + "<" + ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
+
+
+def ptxas_usage(report: str) -> dict:
+    """Each kernel of a ptxas report (``nvcc -Xptxas -v``), by
+    ``_kernel_name``: ``{"registers", "stack", "spill_stores",
+    "spill_loads"}`` (bytes but for the registers)."""
+    entries, props, cur = set(), {}, None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entries.add(m.group(1))
+        elif m := re.search(r"Function properties for (\S+)", line):
+            cur = props.setdefault(m.group(1), {})
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+    return {_kernel_name(name): v for name, v in props.items() if name in entries}
 
 
 _P = ctypes.c_void_p

@@ -18,6 +18,7 @@ the block copy bit-equal to its input.
 import pytest
 import torch
 
+from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 from coherent_rtlsdr_tpu_torch.kernels.backend import get_spectral
 from coherent_rtlsdr_tpu_torch.kernels.copy import BlockCopy
 from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel, get_fourstep_kernel
@@ -37,17 +38,17 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _blocks(kind, m, dev):
+def _blocks(kind, m, dev, t=T, n=N):
     g = torch.Generator(device=dev).manual_seed(m)
     if kind == "random":
-        return (torch.randint(-128, 128, (T, N, m // 2, 2 * m), generator=g, device=dev,
+        return (torch.randint(-128, 128, (t, n, m // 2, 2 * m), generator=g, device=dev,
                               dtype=torch.int8),
-                torch.randint(-128, 128, (T, m // 2, 2 * m), generator=g, device=dev,
+                torch.randint(-128, 128, (t, m // 2, 2 * m), generator=g, device=dev,
                               dtype=torch.int8))
-    cap = synth_capture(g, make_truth(N, seed=m, max_delay=30.0), n_blocks=T,
+    cap = synth_capture(g, make_truth(n, seed=m, max_delay=30.0), n_blocks=t,
                         block_len=m * m // 2)
-    return (u8_to_i8(cap.sig_u8.reshape(T, N, m // 2, 2 * m)),
-            u8_to_i8(cap.ref_u8.reshape(T, m // 2, 2 * m)))
+    return (u8_to_i8(cap.sig_u8.reshape(t, n, m // 2, 2 * m)),
+            u8_to_i8(cap.ref_u8.reshape(t, m // 2, 2 * m)))
 
 
 def _ulp_apart(a, b):
@@ -88,6 +89,55 @@ def test_kernels_match_plain_on_card(kind, m, cuda_device):
     assert k.apply_spec_i8_launches == 1
     d = (wk.int() - wp.int()).abs()
     assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
+def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
+    """The three i8 measure entries (reference, channels with and without the
+    D store) against their plain versions on correlated bytes: one window of
+    21 channels (a streaming step), a single channel, and 26 x 21 windows,
+    which fill no whole wave of CTAs on 132 SMs at either m."""
+    t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
+    k = FusedPipelineKernels(m * m, cuda_device)
+    raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
+    r_got, e_got = k.measure_ref(ref_raw)
+    r_want, e_want = k.measure_ref_plain(ref_raw)
+    spec = k.measure_spec(raw, r_got, e_got)
+    spec_plain = k.measure_spec_plain(raw, r_got, e_got)
+    rec = fused_cuda.measure_i8(k, raw, r_got, e_got)
+    rec_plain = k.measure_i8_plain(raw, r_got, e_got)
+    torch.cuda.synchronize()
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(
+        measure_ref_launches=1, measure_spec_launches=1, measure_i8_launches=1,
+        measure_ref_plain_runs=1, measure_spec_plain_runs=1, measure_i8_plain_runs=1)
+    assert r_got.shape == (t - 1, m, m, 2) and torch.isfinite(r_got).all()
+    assert ((e_got - e_want).abs() <= 1e-3 * e_want).all()
+    r_ulp = _ulp_apart(r_got.to(torch.bfloat16), r_want.to(torch.bfloat16))
+    assert (r_ulp > 1).float().mean().item() < 1e-3
+    assert spec[5].shape == (t - 1, n, m, m) and len(rec) == 5
+    for got, want in ((spec, spec_plain), (rec, rec_plain)):
+        for x in got[:5]:
+            assert x.shape == (t - 1, n) and torch.isfinite(x).all()
+        used = want[3] >= MIN_CORR_MAG
+        assert used.all() and torch.equal(got[3] >= MIN_CORR_MAG, used)
+        assert ((got[0] - want[0]).abs() <= 1e-3).all()
+        for a, b in zip(got[1:5], want[1:5]):
+            assert ((a - b).abs() <= 1e-3 * b.abs()).all()
+    for a, b in zip(spec[5:], spec_plain[5:]):
+        assert (_ulp_apart(a, b) > 1).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_measure_kernels_use_no_stack_on_card(cuda_device):
+    """ptxas: the six tensor-core measure instantiations ({reference,
+    channels with and without D} x m in {64, 128}) use no stack frame and
+    spill nothing."""
+    usage = fused_cuda.ptxas_usage(fused_cuda.build()["fused_measure.cu"])
+    for name in fused_cuda.TC_MEASURE_KERNELS:
+        assert (usage[name]["stack"], usage[name]["spill_stores"],
+                usage[name]["spill_loads"]) == (0, 0, 0), (name, usage[name])
 
 
 @pytest.mark.cuda
@@ -291,8 +341,6 @@ def test_copy_blocks_small_batches_bit_equal_on_card(T_blocks, nc, cuda_device):
 def test_wrappers_raise_on_views_on_card(kernel, view, cuda_device):
     """The four-step and copy wrappers take no view: a base off a 16-byte
     boundary or a non-contiguous tensor raises before any launch."""
-    from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
-
     m = 64
     if kernel == "fourstep":
         k = FFT4StepKernel(m * m, cuda_device)

@@ -34,29 +34,29 @@ T, N = 4, 3
 MIN_CORR_MAG = 0.1   # PipelineConfig.min_corr_mag
 
 
-def _stream_bytes(kind, seed):
-    """Signed blocks ``raw [T, N, m/2, 2m]`` and ``ref_raw [T, m/2, 2m]``:
-    uniform random bytes, or channels that are fractionally delayed,
+def _stream_bytes(kind, seed, m=M, t=T, n_ch=N):
+    """Signed blocks ``raw [t, n_ch, m/2, 2m]`` and ``ref_raw [t, m/2,
+    2m]``: uniform random bytes, or channels that are fractionally delayed,
     rotated, noisy copies of a Gaussian reference (made with numpy)."""
     rng = np.random.default_rng(seed)
-    L = W // 2
     if kind == "random":
-        return (rng.integers(-128, 128, (T, N, M // 2, 2 * M), dtype=np.int8),
-                rng.integers(-128, 128, (T, M // 2, 2 * M), dtype=np.int8))
-    n = T * L
+        return (rng.integers(-128, 128, (t, n_ch, m // 2, 2 * m), dtype=np.int8),
+                rng.integers(-128, 128, (t, m // 2, 2 * m), dtype=np.int8))
+    n = t * m * m // 2
     ref = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.25
     f = np.fft.fftfreq(n)
-    delays = rng.uniform(-30, 30, N)
-    rot = np.exp(1j * rng.uniform(-np.pi, np.pi, N))
+    delays = rng.uniform(-30, 30, n_ch)
+    rot = np.exp(1j * rng.uniform(-np.pi, np.pi, n_ch))
     sig = np.fft.ifft(np.fft.fft(ref)[None] * np.exp(-2j * np.pi * f[None] * delays[:, None]))
-    sig = sig * rot[:, None] + 0.01 * (rng.standard_normal((N, n)) + 1j * rng.standard_normal((N, n)))
+    sig = sig * rot[:, None] + 0.01 * (rng.standard_normal((n_ch, n))
+                                       + 1j * rng.standard_normal((n_ch, n)))
 
     def q(x):
         iq = np.stack([x.real, x.imag], -1) * 127.0
         return np.clip(np.round(iq), -128, 127).astype(np.int8)
 
-    return (q(sig).reshape(N, T, M // 2, 2 * M).transpose(1, 0, 2, 3).copy(),
-            q(ref).reshape(T, M // 2, 2 * M))
+    return (q(sig).reshape(n_ch, t, m // 2, 2 * m).transpose(1, 0, 2, 3).copy(),
+            q(ref).reshape(t, m // 2, 2 * m))
 
 
 def _bf16_bits(x):
@@ -215,3 +215,38 @@ def test_no_fallback_without_the_card(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="meta"):
         fk.ifft(x.reshape(2, M, M))
     assert set(fk.counts().values()) == {0}
+
+
+# The shape of an `nvcc -Xptxas -v` report: an entry kernel with a stack
+# frame, one without, a device function that is not an entry, and a C entry.
+_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5fused14measure_kernelILi128ELb1EEEvPKaPK6float2S4_PKfPfS8_S8_S8_S8_P13__nv_bfloat16SA_' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fused14measure_kernelILi128ELb1EEEvPKaPK6float2S4_PKfPfS8_S8_S8_S8_P13__nv_bfloat16SA_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Function properties for _ZN5fused9phase_zoomILi64ELi128EEENS_10ZoomResultEP6float2S3_Pf
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN5fused18measure_ref_kernelILi64EEEvPKaPK6float2S4_PS2_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fused18measure_ref_kernelILi64EEEvPKaPK6float2S4_PS2_Pf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function 'probe_entry' for 'sm_90a'
+ptxas info    : Function properties for probe_entry
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 10 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_each_entry_kernel():
+    usage = fused_cuda.ptxas_usage(_PTXAS)
+    assert usage == {
+        "fused::measure_kernel<128, 1>": dict(registers=168, stack=0, spill_stores=0,
+                                              spill_loads=0),
+        "fused::measure_ref_kernel<64>": dict(registers=96, stack=8, spill_stores=4,
+                                              spill_loads=12),
+        "probe_entry": dict(registers=10, stack=0, spill_stores=0, spill_loads=0),
+    }
+    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 6
+    assert {"fused::measure_kernel<128, 1>", "fused::measure_ref_kernel<64>"} < set(
+        fused_cuda.TC_MEASURE_KERNELS)
