@@ -18,7 +18,7 @@ W = 2L = 128^2), phase by phase. The fused i8 path (fft_impl="fused"):
      inputs one more streaming step gives it;
   6. each kernel against its plain version at the offline shapes, timed;
   7. one streaming call and one offline run under torch.profiler: device
-     busy time and idle share.
+     busy time, idle share and each fused kernel's device time.
 
 The generic path (fft_impl="pallas", lag_method="phase_slope"; the
 four-step FFT kernel) and ``FusedSpectral`` (the float measure/apply
@@ -56,8 +56,9 @@ probe with its block copy:
 
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the ptxas report of every kernel
-(registers, stack, spills; the six tensor-core i8 measure instantiations
-must use no stack), the card's name and power limit
+(registers, stack, spills; the ten tensor-core i8 instantiations, six
+measure and four apply, must use no stack and spill nothing), the card's
+name and power limit
 and a JSON summary of the nine kernels (times, launches, errors, and the
 bound from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and
 bf16 operations over 989 TFLOP/s); the last line is ``{"ok": true,
@@ -129,7 +130,8 @@ def cuda_ms(fn, reps=1):
 def device_profile(fn):
     """Wall time (ms) of ``fn()`` to a synchronize, and the device time of
     the kernels it ran (from torch.profiler): total, idle share of the wall
-    time, and the five largest by name."""
+    time, the five largest by name, and each of the port's fused kernels
+    (``fused::name<m, ...>``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -144,8 +146,10 @@ def device_profile(fn):
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    fused = {name.split("(")[0].removeprefix("void "): ms for name, ms in by_name.items()
+             if "fused::" in name}
     return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
-                kernel_names=len(by_name), top_ms=dict(top))
+                kernel_names=len(by_name), top_ms=dict(top), fused_kernel_ms=fused)
 
 
 def ulp_apart(a, b):
@@ -677,10 +681,11 @@ def main():
     # 7. Where the time goes: one more streaming call and one offline run
     # under torch.profiler.
     blk = slice(n_stream, n_synth)
+    prof_offline = device_profile(lambda: offline_run(cfg, sig_u8, ref_u8))
     emit(dict(phase="profile", card=smi,
               streaming_call=device_profile(
                   lambda: run(pstate, sigs[blk], refs[blk], True, seqs[blk])),
-              offline=device_profile(lambda: offline_run(cfg, sig_u8, ref_u8))))
+              offline=prof_offline))
 
     # --- The generic path and FusedSpectral. ---------------------------
     from coherent_rtlsdr_tpu_torch.kernels.backend import FusedSpectral
@@ -935,16 +940,18 @@ def main():
     fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"])
-    # Registers, stack and spills of every kernel; the six tensor-core
-    # measure instantiations must use no stack.
+    # Registers, stack and spills of every kernel; the ten tensor-core i8
+    # instantiations (measure and apply) must use no stack and spill nothing.
     ptxas = {src: fused_cuda.ptxas_usage(report[src]) for src in fused_cuda.SOURCES}
     emit(dict(phase="ptxas", **ptxas))
-    measure_ptxas = {name: ptxas["fused_measure.cu"].get(name)
-                     for name in fused_cuda.TC_MEASURE_KERNELS}
-    spilled = [name for name, u in measure_ptxas.items()
+    tc_ptxas = {name: ptxas[src].get(name)
+                for src, names in (("fused_measure.cu", fused_cuda.TC_MEASURE_KERNELS),
+                                   ("fused_apply.cu", fused_cuda.TC_APPLY_KERNELS))
+                for name in names}
+    spilled = [name for name, u in tc_ptxas.items()
                if u is None or u["stack"] or u["spill_stores"] or u["spill_loads"]]
     if spilled:
-        raise AssertionError(f"measure kernels with stack or spills (or no report): {spilled}")
+        raise AssertionError(f"i8 kernels with stack or spills (or no report): {spilled}")
     print(smi, flush=True)
     emit({"kernels": [
         entry("fused_measure_ref", "fused_measure.cu", tpu + "pallas_fused.py:356",
@@ -955,7 +962,8 @@ def main():
               worst("lag_max_abs_err"), ms["measure"], ms["measure_plain"]),
         entry("fused_apply_spec_i8", "fused_apply.cu", tpu + "pallas_fused.py:392",
               cost_model.apply_spec_i8(*shape), launches["apply_spec_i8_launches"],
-              worst("wire_max_lsb"), ms["apply"], ms["apply_plain"]),
+              worst("wire_max_lsb"), ms["apply"], ms["apply_plain"],
+              device_ms=prof_offline["fused_kernel_ms"].get(f"fused::apply_spec_kernel<{m}>")),
         entry("fused_measure_i8", "fused_measure.cu", tpu + "pallas_fused.py:279",
               cost_model.measure_i8(*shape), launches["measure_i8_launches"],
               errs14["lag_max_abs_err"], ms14["measure_i8"], ms14["measure_i8_plain"]),

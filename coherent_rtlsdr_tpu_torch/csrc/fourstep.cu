@@ -141,7 +141,7 @@ __device__ __forceinline__ void consume(const __nv_bfloat16* tab, const __nv_bfl
 #pragma unroll 1
     for (int cc = 0; cc < NCH; ++cc) {
       float dre[NT][4], dim[NT][4];
-      tc::strip_product_a<M>(cre, cim, tre, tim, cc, dre, dim);
+      tc::strip_product_a<M>(cre, cim, tre, tim, cc * kChunk, dre, dim);
 #pragma unroll
       for (int jt = 0; jt < NT; ++jt) {
         const int c = cc * kChunk + jt * 8 + 2 * t;
@@ -204,36 +204,11 @@ fourstep_kernel(const float2* __restrict__ x, const __nv_bfloat16* __restrict__ 
     consume<M, INVERSE>(tab_s, win_s, stage_s, Tw, y, n_local);
 }
 
-// The persistent grid for a batch of B: every CTA that fits on the card at
-// once (a whole number of waves), at most B. The first call on a device
-// sets the kernel's shared memory and asks for its occupancy; later calls
-// reuse it. Returns the grid, or minus a CUDA error code.
-template <int M, bool INVERSE>
-int grid_for(int B) {
-  constexpr int kMaxDevices = 64;
-  static int capacity[kMaxDevices];  // SMs x CTAs an SM, 0 until asked
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
-  if (err == cudaSuccess && capacity[dev] == 0) {
-    const int smem = static_cast<int>(Plan<M>::kBytes);
-    int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(fourstep_kernel<M, INVERSE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fourstep_kernel<M, INVERSE>,
-                                                          Plan<M>::kThreads, smem);
-    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-    if (err == cudaSuccess) capacity[dev] = sms * per_sm;
-  }
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return B < capacity[dev] ? B : capacity[dev];
-}
-
 template <int M, bool INVERSE>
 int launch(const void* x, const void* tab, const void* Tw, void* y, int B, void* stream) {
-  const int grid = grid_for<M, INVERSE>(B);
+  static int capacity[tc::kMaxDevices];  // the persistent grid's occupancy, a device
+  const int grid = tc::persistent_grid(fourstep_kernel<M, INVERSE>, Plan<M>::kThreads,
+                                       static_cast<int>(Plan<M>::kBytes), B, capacity);
   if (grid < 0) return -grid;
   fourstep_kernel<M, INVERSE>
       <<<grid, Plan<M>::kThreads, Plan<M>::kBytes, static_cast<cudaStream_t>(stream)>>>(

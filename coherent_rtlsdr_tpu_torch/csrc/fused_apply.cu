@@ -15,26 +15,69 @@
 // Plain PyTorch versions: coherent_rtlsdr_tpu_torch/kernels/fused.py
 // (apply_spec_i8_plain, apply_i8_plain, apply_plain).
 //
-// Design. One CTA of 256 threads per (window t, channel n). What bounds it
-// on the H100: the SIMT FMA work of the products, C2 = G Fi (16.8 MFLOP a
-// window at m = 128) and the centre rows y = Fi[m/4:3m/4] B2 (8.4 MFLOP),
-// plus the forward transform (33.6 MFLOP) where it is recomputed; the bytes
-// are 64 kB (bf16 spectrum) or 32 kB (int8 window) in and 16 kB (int8) or
-// 64 kB (float32) out a window. The intermediate matrices stay in shared
-// memory. The ramp is built per element from the advance (exact integer
-// part, then the fractional part times the signed frequency), so no ramp
-// table is read.
-//   spectrum in: G, B2 as padded bf16 matrices, 2 x 66 kB at m = 128;
-//   window in:   forward_fft's regions (the window A as float2, then G as
-//                bf16 in its place; C, then B2), 197,152 bytes at m = 128.
+// Design of the i8 kernels. What bounds them on the H100: the products, a
+// complex m x m by m x m one (C2 = G Fi, 8m^3 = 16.8 MFLOP a window at m =
+// 128) and its centre half (y = Fi[m/4:3m/4] B2, 8.4 MFLOP), plus the forward
+// transform (33.6 MFLOP) where it is recomputed, against 64 kB (bf16
+// spectrum) or 32 kB (int8 window) in and 16 kB of wire bytes out a window:
+// over 5,355 windows 0.136 ms of products at the bf16 tensor-core peak
+// against 0.131 ms of bytes (spectrum in), so only a load that overlaps the
+// products gets near the bound. The products run on the tensor cores
+// (fused_common.cuh: the transposed inverse inverse_tc_first /
+// inverse_tc_centre_wire, mma.sync m16n8k16 bf16 -> f32, a warp a 16-row
+// strip, B2 kept in registers as the second product's A fragments, only the
+// centre columns of the second product, the wire bytes staged a chunk a
+// warp and stored 16 bytes a lane). The ramp is built per element from the
+// advance (exact integer part, then the fractional part times the signed
+// frequency), so no ramp table is read; sincospif of the ramp in turns
+// (exact argument reduction) keeps the kernels free of a stack frame.
+//   * apply_spec_kernel: a persistent grid (one CTA an SM at m = 128). Four
+//     producer warps stream the next window's D (16-byte loads), multiply
+//     it by the ramp and phase factor, and write G = bf16(D w) swizzled into
+//     the free one of two window buffers while the m / 16 consumer warps run
+//     the inverse of the other; named barriers hand the buffers over, as in
+//     fourstep.cu. Shared memory at m = 128: the Fi table (64 kB), two G
+//     buffers (128 kB), a 1 kB staging tile a consumer warp: 204,800 bytes.
+//   * apply_i8_kernel: one CTA a window, m / 16 warps: the window's bytes
+//     (load_window_i8), forward_tc with F, whose epilogue writes G = bf16(D
+//     w) from the float32 D over the window's buffer (forward_tc's barrier
+//     between its products frees it), then the inverse with Fi. Shared
+//     memory at m = 128: F and Fi as separate tables (2 x 64 kB; Fi is not
+//     reloaded over F, which the second forward product still reads), the
+//     window / G (64 kB) and the staging tiles: 204,800 bytes.
+// The float kernel (apply_planes_kernel) keeps the SIMT forward_fft /
+// inverse_fft: one CTA of 256 threads per (t, n), 197,152 bytes of shared
+// memory at m = 128 (forward_fft's regions: the window A as float2, then G
+// as bf16 in its place; C, then B2).
 
 #include "fused_common.cuh"
 
 namespace fused {
 
+constexpr int kProducerWarps = 4;
+constexpr int kLoadUnroll = 4;  // 16-byte vector pairs (re, im) in flight a producer thread
+constexpr int kFull = 1;        // named barriers kFull + s: G buffer s is written
+constexpr int kEmpty = 3;       // kEmpty + s: G buffer s may be overwritten
+
+// The persistent apply_spec_kernel: m / 16 consumer warps (a 16-row strip
+// each) and the producer warps.
 template <int M>
-struct ApplySmem {
-  static constexpr size_t kBytes = 2 * SmemBf16Matrix<M>::kBytes;
+struct ApplySpecPlan {
+  static constexpr int kConsumerWarps = M / 16;
+  static constexpr int kConsumers = 32 * kConsumerWarps;
+  static constexpr int kProducers = 32 * kProducerWarps;
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr int kPlane = M * M;  // bf16 elements of one plane
+  // The Fi table (re, im), two G buffers (re, im), a staging tile a consumer warp.
+  static constexpr size_t kBytes =
+      6 * kPlane * sizeof(__nv_bfloat16) + kConsumerWarps * kWireStage;
+};
+
+// apply_i8_kernel: the F and Fi tables, the window / G and the staging tiles.
+template <int M>
+struct ApplyI8Smem {
+  static constexpr size_t kTable = 2 * sizeof(__nv_bfloat16) * M * M;
+  static constexpr size_t kBytes = 3 * kTable + (M / 16) * kWireStage;
 };
 
 template <int M>
@@ -43,119 +86,214 @@ struct ApplyPlanesSmem {
   static constexpr size_t kBytes = kRegionA + SmemBf16Matrix<M>::kBytes;
 };
 
-// Ramp phase (radians) of natural bin k for delay d = di + df (di integer,
-// df in [0, 1)): 2 pi (iramp(k, di) + f_k df). The explicit _rn operations
+// Ramp of natural bin k for delay d = di + df (di integer, df in [0, 1)), in
+// turns: iramp(k, di) + f_k df, in [-0.5, 1.5). The explicit _rn operations
 // keep the compiler from contracting it into an FMA, so it rounds as the
 // plain version does.
 template <int W>
-__device__ __forceinline__ float ramp_phase(uint32_t k, int d_int, float df) {
-  return __fmul_rn(__fadd_rn(iramp_fraction<W>(k, d_int), __fmul_rn(signed_freq<W>(k), df)),
-                   kTwoPi);
+__device__ __forceinline__ float ramp_turns(uint32_t k, int d_int, float df) {
+  return __fadd_rn(iramp_fraction<W>(k, d_int), __fmul_rn(signed_freq<W>(k), df));
 }
 
-// The apply weight of natural bin k: the ramp exp(-i ramp_phase) times the
-// phase factor p, (co - i s) (p_re + i p_im).
+// The same in radians, fl(turns * 2 pi) as the plain version rounds it (the
+// float kernel).
 template <int W>
-__device__ __forceinline__ float2 ramp_weight(uint32_t k, int d_int, float df, float p_re,
-                                              float p_im) {
-  float s, co;
-  sincosf(ramp_phase<W>(k, d_int, df), &s, &co);
-  return make_float2(co * p_re + s * p_im, co * p_im - s * p_re);
+__device__ __forceinline__ float ramp_phase(uint32_t k, int d_int, float df) {
+  return __fmul_rn(ramp_turns<W>(k, d_int, df), kTwoPi);
 }
 
-// The int8 wire epilogue of inverse_fft: round half to even x127, saturate,
-// and interleave (re, im) of centre row r, column c into the wire block
-// [m/2, 2m] at o.
+// The delay and phase factor of one window: the apply weight of natural bin
+// k is the ramp exp(-i 2 pi turns) times p, (co - i s) (p_re + i p_im).
+// sincospif(2 turns) differs from the plain version's cos / sin of fl(turns
+// 2 pi) by about an ulp of the phase.
 template <int M>
-struct WireStore {
-  int8_t* o;
-  __device__ __forceinline__ void operator()(int r, int c, float yre, float yim) const {
-    const float qre = fminf(fmaxf(rintf(yre * 127.0f), -128.f), 127.f);
-    const float qim = fminf(fmaxf(rintf(yim * 127.0f), -128.f), 127.f);
-    reinterpret_cast<char2*>(o)[r * M + c] =
-        make_char2(static_cast<signed char>(qre), static_cast<signed char>(qim));
+struct Ramp {
+  int d_int;
+  float df, p_re, p_im;
+
+  __device__ __forceinline__ Ramp(float advance, float phase_re, float phase_im)
+      : p_re(phase_re), p_im(phase_im) {
+    const float d = -advance;
+    const float di = floorf(d);
+    df = d - di;
+    d_int = static_cast<int>(di);
+  }
+
+  __device__ __forceinline__ float2 weight(uint32_t k) const {
+    float s, co;
+    sincospif(2.f * ramp_turns<M * M>(k, d_int, df), &s, &co);
+    return make_float2(co * p_re + s * p_im, co * p_im - s * p_re);
+  }
+
+  // Elements (r, c) and (r, c + 1) of D, float (re, im) pairs d0, d1, times
+  // their weights, rounded to bf16: the (re, im) words of G.
+  __device__ __forceinline__ uint2 g_pair(int r, int c, float2 d0, float2 d1) const {
+    const float2 w0 = weight(static_cast<uint32_t>(r + M * c));
+    const float2 w1 = weight(static_cast<uint32_t>(r + M * (c + 1)));
+    return make_uint2(tc::pack_bf16(d0.x * w0.x - d0.y * w0.y, d1.x * w1.x - d1.y * w1.y),
+                      tc::pack_bf16(d0.x * w0.y + d0.y * w0.x, d1.x * w1.y + d1.y * w1.x));
   }
 };
 
+// The low and high bf16 of a word, exactly, as floats.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+// Vector q of D (elements 8q..8q+7 of the window, row-major [k2][k1]), the
+// 16-byte words vr, vi of its re / im planes, times the ramp into G: one
+// 16-byte chunk of each swizzled plane gre, gim.
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const __nv_bfloat16* __restrict__ dre, const __nv_bfloat16* __restrict__ dim,
-             const float* __restrict__ advance, const float* __restrict__ phase_re,
-             const float* __restrict__ phase_im, const float2* __restrict__ Fi,
-             const float2* __restrict__ Tw, int8_t* __restrict__ out) {
-  constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  SmemBf16Matrix<M> G{reinterpret_cast<__nv_bfloat162*>(smem)};
-  SmemBf16Matrix<M> B{reinterpret_cast<__nv_bfloat162*>(smem + SmemBf16Matrix<M>::kBytes)};
-
-  const int n = blockIdx.x;
-  const int N = gridDim.x;
-  const int t = blockIdx.y;
-  const size_t win = static_cast<size_t>(t) * N + n;
-  const __nv_bfloat16* Dre = dre + win * W;
-  const __nv_bfloat16* Dim = dim + win * W;
-
-  // Ramp exp(-2 pi i (iramp(floor(d)) + f frac(d))) for delay d = -advance,
-  // times the phase factor p.
-  const float d = -advance[win];
-  const float di = floorf(d);
-  const float df = d - di;
-  const int d_int = static_cast<int>(di);
-  const float p_re = phase_re[win];
-  const float p_im = phase_im[win];
-  for (int i = threadIdx.x; i < W; i += kThreads) {
-    const int r = i / M;
-    const int c = i % M;
-    const float2 w = ramp_weight<W>(static_cast<uint32_t>(r + M * c), d_int, df, p_re, p_im);
-    const float gr = __bfloat162float(Dre[i]);
-    const float gi = __bfloat162float(Dim[i]);
-    G.set(r, c, gr * w.x - gi * w.y, gr * w.y + gi * w.x);
+__device__ __forceinline__ void store_g(const Ramp<M>& ramp, int q, uint4 vr, uint4 vi,
+                                        __nv_bfloat16* gre, __nv_bfloat16* gim) {
+  const int r = 8 * q / M, c = 8 * q % M;
+  const uint32_t xr[4] = {vr.x, vr.y, vr.z, vr.w};
+  const uint32_t xi[4] = {vi.x, vi.y, vi.z, vi.w};
+  uint32_t ore[4], oim[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 re = unpack_bf16(xr[i]), im = unpack_bf16(xi[i]);
+    const uint2 gw = ramp.g_pair(r, c + 2 * i, make_float2(re.x, im.x), make_float2(re.y, im.y));
+    ore[i] = gw.x;
+    oim[i] = gw.y;
   }
+  const int o = tc::swz<M>(r, c);
+  *reinterpret_cast<uint4*>(gre + o) = make_uint4(ore[0], ore[1], ore[2], ore[3]);
+  *reinterpret_cast<uint4*>(gim + o) = make_uint4(oim[0], oim[1], oim[2], oim[3]);
+}
+
+// Producer warps: window j of this CTA (window blockIdx.x + j gridDim.x of
+// the batch) from dre / dim bf16 [B, m, m] into G buffer j % 2, as swizzled
+// bf16 planes [k2][k1].
+template <int M>
+__device__ __forceinline__ void produce_g(const __nv_bfloat16* __restrict__ dre,
+                                          const __nv_bfloat16* __restrict__ dim,
+                                          const float* __restrict__ advance,
+                                          const float* __restrict__ phase_re,
+                                          const float* __restrict__ phase_im,
+                                          __nv_bfloat16* win, int n_local) {
+  using P = ApplySpecPlan<M>;
+  constexpr int W = M * M;
+  constexpr int kVec = W / 8;  // 16-byte vectors (8 elements) of a plane
+  static_assert(kVec % (P::kProducers * kLoadUnroll) == 0, "whole rounds only");
+  const int p = threadIdx.x - P::kConsumers;
+  for (int j = 0; j < n_local; ++j) {
+    const int s = j & 1;
+    if (j >= 2) tc::bar_sync(kEmpty + s, P::kThreads);
+    const size_t b = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
+    const Ramp<M> ramp(advance[b], phase_re[b], phase_im[b]);
+    const uint4* src_re = reinterpret_cast<const uint4*>(dre + b * W);
+    const uint4* src_im = reinterpret_cast<const uint4*>(dim + b * W);
+    __nv_bfloat16* gre = win + s * 2 * P::kPlane;
+    __nv_bfloat16* gim = gre + P::kPlane;
+    for (int q0 = p; q0 < kVec; q0 += P::kProducers * kLoadUnroll) {
+      uint4 vr[kLoadUnroll], vi[kLoadUnroll];
+#pragma unroll
+      for (int u = 0; u < kLoadUnroll; ++u) {
+        vr[u] = __ldcs(src_re + q0 + u * P::kProducers);
+        vi[u] = __ldcs(src_im + q0 + u * P::kProducers);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadUnroll; ++u)
+        store_g<M>(ramp, q0 + u * P::kProducers, vr[u], vi[u], gre, gim);
+    }
+    tc::bar_arrive(kFull + s, P::kThreads);
+  }
+}
+
+// Consumer warp: the strip n1 = r0..r0+15 of the inverse of every window of
+// this CTA, into the wire blocks out [B, m/2, 2m].
+template <int M>
+__device__ __forceinline__ void consume_g(const __nv_bfloat16* tab, const __nv_bfloat16* win,
+                                          unsigned char* stage, const float2* __restrict__ Tw,
+                                          int8_t* __restrict__ out, int n_local) {
+  using P = ApplySpecPlan<M>;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = warp * 16;
+  unsigned char* st = stage + warp * kWireStage;
+  for (int j = 0; j < n_local; ++j) {
+    const int s = j & 1;
+    const size_t b = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
+    tc::bar_sync(kFull + s, P::kThreads);
+    uint32_t cre[M / 16][4], cim[M / 16][4];
+    inverse_tc_first<M>(tab, win + s * 2 * P::kPlane, Tw, r0, cre, cim);
+    // G is consumed: the producers may refill its buffer.
+    if (j + 2 < n_local) tc::bar_arrive(kEmpty + s, P::kThreads);
+    inverse_tc_centre_wire<M>(cre, cim, tab, st, r0, out + b * (M * M));
+  }
+}
+
+// The spectrum handoff: dre, dim bf16 [B, m, m] (B = (T-1) N windows, the
+// permuted D of fused_measure_i8_spec); advance, phase_re, phase_im float
+// [B]; writes int8 wire blocks out [B, m/2, 2m]. CTA b handles windows b,
+// b + gridDim.x, ...
+template <int M>
+__global__ void __launch_bounds__(ApplySpecPlan<M>::kThreads, 1)
+apply_spec_kernel(const __nv_bfloat16* __restrict__ dre, const __nv_bfloat16* __restrict__ dim,
+                  const float* __restrict__ advance, const float* __restrict__ phase_re,
+                  const float* __restrict__ phase_im, const float2* __restrict__ Fi,
+                  const float2* __restrict__ Tw, int8_t* __restrict__ out, int B) {
+  using P = ApplySpecPlan<M>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tab = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* win = tab + 2 * P::kPlane;
+  unsigned char* stage = reinterpret_cast<unsigned char*>(win + 4 * P::kPlane);
+
+  load_table<M, P::kThreads>(Fi, tab);
   __syncthreads();
 
-  // Centre rows only; quantize and interleave straight to the wire block
-  // [m/2, 2m].
-  inverse_fft<M, M / 2>(G, B, Fi, Tw, WireStore<M>{out + win * W});
+  const int grid = static_cast<int>(gridDim.x);
+  const int n_local = (B - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+  if (threadIdx.x >= P::kConsumers)
+    produce_g<M>(dre, dim, advance, phase_re, phase_im, win, n_local);
+  else
+    consume_g<M>(tab, win, stage, Tw, out, n_local);
 }
 
 // The recompute path: int8 blocks raw [T, N, m/2, 2m] and advance, phase_re,
 // phase_im float [T-1, N]; writes int8 wire blocks out [T-1, N, m/2, 2m].
-// The shared-memory plan of apply_planes_kernel: G = D ramp p is written as
-// bf16 over region A while forward_fft's last product reads only C and F,
-// and the inverse's B2 goes into C.
+// One CTA per (t, n) = (blockIdx.y, blockIdx.x).
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads<M>)
 apply_i8_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advance,
                 const float* __restrict__ phase_re, const float* __restrict__ phase_im,
                 const float2* __restrict__ F, const float2* __restrict__ Fi,
                 const float2* __restrict__ Tw, int8_t* __restrict__ out) {
   constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* A = reinterpret_cast<float2*>(smem);
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + ApplyPlanesSmem<M>::kRegionA)};
-  SmemBf16Matrix<M> G{reinterpret_cast<__nv_bfloat162*>(smem)};
+  using S = ApplyI8Smem<M>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tab_f = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* tab_fi = reinterpret_cast<__nv_bfloat16*>(smem + S::kTable);
+  __nv_bfloat16* win_s = reinterpret_cast<__nv_bfloat16*>(smem + 2 * S::kTable);
+  unsigned char* stage = smem + 3 * S::kTable;
 
   const int n = blockIdx.x;
   const int N = gridDim.x;
   const int t = blockIdx.y;
   const size_t win = static_cast<size_t>(t) * N + n;
 
-  const float d = -advance[win];
-  const float di = floorf(d);
-  const float df = d - di;
-  const int d_int = static_cast<int>(di);
-  const float p_re = phase_re[win];
-  const float p_im = phase_im[win];
+  load_table<M>(F, tab_f);
+  load_table<M>(Fi, tab_fi);
+  load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, win_s);
+  __syncthreads();
 
-  // The float32 D, not a bf16-rounded one, times the ramp and p.
-  forward_fft<M>(
-      [&](float2* a) { load_i8<M>(raw + win * W, static_cast<size_t>(N) * W, a); }, F, Tw, A,
-      C, [&](int r, int c, float dre, float dim) {
-        const float2 w = ramp_weight<W>(static_cast<uint32_t>(r + M * c), d_int, df, p_re, p_im);
-        G.set(r, c, dre * w.x - dim * w.y, dre * w.y + dim * w.x);
-      });
+  // G = bf16(D w) from the float32 D, not a bf16-rounded one, over the
+  // window's buffer: forward_tc's barrier between its products parts the
+  // last read of the window from the first write of G.
+  const Ramp<M> ramp(advance[win], phase_re[win], phase_im[win]);
+  forward_tc<M>(tab_f, win_s, Tw, [&](int r, int c, float4 d) {
+    const uint2 gw = ramp.g_pair(r, c, make_float2(d.x, d.y), make_float2(d.z, d.w));
+    const int o = tc::swz<M>(r, c);
+    *reinterpret_cast<uint32_t*>(win_s + o) = gw.x;
+    *reinterpret_cast<uint32_t*>(win_s + W + o) = gw.y;
+  });
+  __syncthreads();  // G complete
 
-  inverse_fft<M, M / 2>(G, C, Fi, Tw, WireStore<M>{out + win * W});
+  const int warp = threadIdx.x >> 5;
+  uint32_t cre[M / 16][4], cim[M / 16][4];
+  inverse_tc_first<M>(tab_fi, win_s, Tw, warp * 16, cre, cim);
+  inverse_tc_centre_wire<M>(cre, cim, tab_fi, stage + warp * kWireStage, warp * 16,
+                            out + win * W);
 }
 
 // The float path: block planes pre/pim bf16 [T, N, m/2, m], advance float
@@ -207,14 +345,17 @@ template <int M>
 int launch(const void* dre, const void* dim, const void* advance, const void* phase_re,
            const void* phase_im, const void* Fi, const void* Tw, void* out, int T1, int N,
            void* stream) {
-  const int smem = static_cast<int>(ApplySmem<M>::kBytes);
-  const cudaError_t err = set_smem(apply_kernel<M>, smem);
-  if (err != cudaSuccess) return err;
-  apply_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  using P = ApplySpecPlan<M>;
+  static int capacity[tc::kMaxDevices];  // the persistent grid's occupancy, a device
+  const int B = T1 * N;
+  const int grid = tc::persistent_grid(apply_spec_kernel<M>, P::kThreads,
+                                       static_cast<int>(P::kBytes), B, capacity);
+  if (grid < 0) return -grid;
+  apply_spec_kernel<M><<<grid, P::kThreads, P::kBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(dre), static_cast<const __nv_bfloat16*>(dim),
       static_cast<const float*>(advance), static_cast<const float*>(phase_re),
       static_cast<const float*>(phase_im), static_cast<const float2*>(Fi),
-      static_cast<const float2*>(Tw), static_cast<int8_t*>(out));
+      static_cast<const float2*>(Tw), static_cast<int8_t*>(out), B);
   return cudaGetLastError();
 }
 
@@ -222,10 +363,10 @@ template <int M>
 int launch_i8(const void* raw, const void* advance, const void* phase_re, const void* phase_im,
               const void* F, const void* Fi, const void* Tw, void* out, int T1, int N,
               void* stream) {
-  const int smem = static_cast<int>(ApplyPlanesSmem<M>::kBytes);
+  const int smem = static_cast<int>(ApplyI8Smem<M>::kBytes);
   const cudaError_t err = set_smem(apply_i8_kernel<M>, smem);
   if (err != cudaSuccess) return err;
-  apply_i8_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  apply_i8_kernel<M><<<dim3(N, T1), kTcThreads<M>, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(raw), static_cast<const float*>(advance),
       static_cast<const float*>(phase_re), static_cast<const float*>(phase_im),
       static_cast<const float2*>(F), static_cast<const float2*>(Fi),
@@ -253,11 +394,12 @@ int launch_planes(const void* pre, const void* pim, const void* advance, const v
 // dre, dim bf16 [T-1, N, m, m]; advance, phase_re, phase_im float [T-1, N];
 // tables Fi (bf16-rounded conj(F)/m) and Tw float2 [m, m]; out int8
 // [T-1, N, m/2, 2m]. Returns the CUDA error code of the launch (0 on
-// success); -1 for an unsupported m.
+// success); -1 for an unsupported m or no window.
 extern "C" int fused_apply_spec_i8(const void* dre, const void* dim, const void* advance,
                                    const void* phase_re, const void* phase_im, const void* Fi,
                                    const void* Tw, void* out, int T1, int N, int m,
                                    void* stream) {
+  if (T1 < 1 || N < 1) return -1;
   switch (m) {
     case 64:
       return fused::launch<64>(dre, dim, advance, phase_re, phase_im, Fi, Tw, out, T1, N, stream);

@@ -15,12 +15,15 @@
 // Every complex matrix product here takes bf16-valued operands and
 // accumulates in float32, as the TPU's bf16/f32 matmul does (a product of
 // two bf16 values is exact in float32), so the kernels equal it up to
-// summation order. Two forms of the forward transform:
-//   * forward_tc, on the tensor cores (tc_common.cuh, the strip design of
-//     fourstep.cu's forward consumer): the i8 measure kernels
-//     (measure_ref_kernel, measure_kernel);
+// summation order. Two forms of the transforms:
+//   * on the tensor cores (tc_common.cuh, the strip designs of fourstep.cu's
+//     consumers): forward_tc, in the i8 measure kernels (measure_ref_kernel,
+//     measure_kernel) and the recompute apply (apply_i8_kernel); the
+//     inverse's centre rows to int8 wire bytes, inverse_tc_first then
+//     inverse_tc_centre_wire, in both i8 apply kernels (apply_spec_kernel,
+//     apply_i8_kernel);
 //   * forward_fft / inverse_fft on cmatmul, the SIMT FMA units: the float
-//     measure kernel and the three apply kernels, until they move too.
+//     measure and apply kernels (measure_planes_kernel, apply_planes_kernel).
 
 #pragma once
 
@@ -40,10 +43,6 @@ constexpr float kTwoPi = 6.283185307179586f;     // float32(2*pi)
 template <class Kernel>
 cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Exact (k * d) mod W / W for an integer d of either sign. W is a power of
@@ -165,25 +164,6 @@ __device__ __forceinline__ void forward_fft(Load load, const float2* __restrict_
   __syncthreads();
 }
 
-// Window loader of the i8 path: rows 0..m/2-1 from the int8 block `top`,
-// rows m/2..m-1 from `top + next`; A = bf16(float(i8) * (1/127)).
-template <int M>
-__device__ __forceinline__ void load_i8(const int8_t* __restrict__ top, size_t next, float2* A) {
-  constexpr float kScale = static_cast<float>(1.0 / 127.0);
-  // 4 bytes (2 samples) per step; each half-window is m*m contiguous bytes.
-  constexpr int kWords = M * M / 4;
-  for (int w = threadIdx.x; w < 2 * kWords; w += kThreads) {
-    const int half = w / kWords;
-    const int wi = w - half * kWords;
-    const char4 b = reinterpret_cast<const char4*>(top + half * next)[wi];
-    const int s = 2 * wi;  // sample index within the half-window
-    const int r = half * (M / 2) + s / M;
-    const int c = s % M;
-    A[r * M + c] = make_float2(bf16_round(b.x * kScale), bf16_round(b.y * kScale));
-    A[r * M + c + 1] = make_float2(bf16_round(b.z * kScale), bf16_round(b.w * kScale));
-  }
-}
-
 // Window loader of the float path: fills A from two half-window bf16 plane
 // pairs, rows 0..m/2-1 from (re, im) and rows m/2..m-1 from (re + next,
 // im + next), the same channel's next block. Reads two bf16 a thread per
@@ -234,11 +214,12 @@ template <int M>
 constexpr int kTcThreads = 2 * M;
 
 // F (interleaved float32 [m, m], bf16-exact values, so the conversion is
-// exact) into swizzled bf16 re / im planes at `tab` (2 m^2 elements).
-template <int M>
+// exact) into swizzled bf16 re / im planes at `tab` (2 m^2 elements), by the
+// NT threads of the CTA.
+template <int M, int NT = kTcThreads<M>>
 __device__ __forceinline__ void load_table(const float2* __restrict__ F, __nv_bfloat16* tab) {
   constexpr int kChunks = M * M / 8;  // 8 elements, 16 bytes of a plane
-  for (int q = threadIdx.x; q < kChunks; q += kTcThreads<M>) {
+  for (int q = threadIdx.x; q < kChunks; q += NT) {
     const int r = q / (M / 8);
     const int c = (q % (M / 8)) * 8;
     const float4* src = reinterpret_cast<const float4*>(F + r * M + c);
@@ -262,8 +243,8 @@ __device__ __forceinline__ float sbyte(int x, int k) {
 
 // The window of the i8 path into swizzled bf16 re / im planes at `win` (2 m^2
 // elements): rows 0..m/2-1 from the int8 block `top`, rows m/2..m-1 from
-// `top + next`; A = bf16(float(i8) * (1/127)), load_i8's rounding. 16 bytes
-// (8 samples) a load, all of a thread's loads in flight at once.
+// `top + next`; A = bf16(float(i8) * (1/127)), as the plain version rounds.
+// 16 bytes (8 samples) a load, all of a thread's loads in flight at once.
 template <int M>
 __device__ __forceinline__ void load_window_i8(const int8_t* __restrict__ top, size_t next,
                                                __nv_bfloat16* win) {
@@ -327,7 +308,7 @@ __device__ __forceinline__ void forward_tc(const __nv_bfloat16* tab, const __nv_
 #pragma unroll 1
   for (int cc = 0; cc < M / tc::kChunk; ++cc) {
     float dre[NT][4], dim[NT][4];
-    tc::strip_product_a<M>(cre, cim, tab, tab + M * M, cc, dre, dim);
+    tc::strip_product_a<M>(cre, cim, tab, tab + M * M, cc * tc::kChunk, dre, dim);
 #pragma unroll
     for (int jt = 0; jt < NT; ++jt)
 #pragma unroll
@@ -335,6 +316,92 @@ __device__ __forceinline__ void forward_tc(const __nv_bfloat16* tab, const __nv_
         epi(r0 + g + 8 * hh, cc * tc::kChunk + jt * 8 + 2 * t,
             make_float4(dre[jt][2 * hh], dim[jt][2 * hh], dre[jt][2 * hh + 1],
                         dim[jt][2 * hh + 1]));
+  }
+}
+
+// --- The tensor-core inverse of the i8 apply kernels: the overlap-save
+// centre rows of the inverse four-step of a permuted spectrum G, as int8
+// wire bytes. It runs transposed, as fourstep.cu's inverse consumer does
+// (F, Fi and T are symmetric): C2^T = Fi G^T, B2^T = bf16(C2^T * conj(T)),
+// y^T = B2^T Fi, so that B2 stays in registers. Warp w owns the strip of
+// rows n1 = 16w..16w+15 of both products; in the second, only the columns
+// n2 in [m/4, 3m/4) that the wire block keeps are computed.
+
+// Bytes of a warp's staging tile: a chunk's kChunk output rows n2 of 32
+// bytes, the (re, im) int8 pairs of the strip's 16 columns n1.
+constexpr int kWireStage = tc::kChunk * 32;
+
+// First product and twiddle on G (swizzled bf16 re / im planes at `g`,
+// stored [k2][k1]) with the Fi table (planes at `tab`): the strip's rows of
+// B2^T as the A fragments (cre, cim) of the second product.
+template <int M>
+__device__ __forceinline__ void inverse_tc_first(const __nv_bfloat16* tab,
+                                                 const __nv_bfloat16* g,
+                                                 const float2* __restrict__ Tw, int r0,
+                                                 uint32_t (&cre)[M / 16][4],
+                                                 uint32_t (&cim)[M / 16][4]) {
+#pragma unroll
+  for (int cc = 0; cc < M / tc::kChunk; ++cc) {
+    float are[tc::kChunkTiles][4], aim[tc::kChunkTiles][4];
+    tc::strip_product<M, false>(tab, tab + M * M, r0, g, g + M * M, cc, are, aim);
+    tc::twiddle_to_a<M, true>(are, aim, Tw, r0, cc, cre, cim);
+  }
+}
+
+// (re, im) rounded half to even x127 and saturated, as the int8 wire pair
+// (re in the low byte).
+__device__ __forceinline__ uint16_t wire_pair(float re, float im) {
+  const int qre = static_cast<int>(fminf(fmaxf(rintf(re * 127.0f), -128.f), 127.f));
+  const int qim = static_cast<int>(fminf(fmaxf(rintf(im * 127.0f), -128.f), 127.f));
+  return static_cast<uint16_t>((qre & 0xff) | ((qim & 0xff) << 8));
+}
+
+// Byte offset of (row, byte col) in a staging tile of 32-byte rows, the two
+// 16-byte halves swapped on rows 4..7 mod 8: the warp's 2-byte writes and
+// its 16-byte reads each meet 32 different banks.
+__device__ __forceinline__ int stage_offset(int row, int col) {
+  return row * 32 + (col ^ (((row >> 2) & 1) << 4));
+}
+
+// Second product on the centre columns of the strip (A fragments from
+// inverse_tc_first, the Fi table at `tab`), quantized into the window's
+// wire block out [m/2, 2m]: row n2 - m/4 holds (re, im) of column n1 at
+// bytes 2 n1, 2 n1 + 1, so the strip is 32 contiguous bytes of each row. A
+// chunk of kChunk rows goes through the warp's staging tile `st`
+// (kWireStage bytes) and out as 16-byte stores, two lanes a row.
+template <int M>
+__device__ __forceinline__ void inverse_tc_centre_wire(const uint32_t (&cre)[M / 16][4],
+                                                       const uint32_t (&cim)[M / 16][4],
+                                                       const __nv_bfloat16* tab,
+                                                       unsigned char* st, int r0,
+                                                       int8_t* __restrict__ out) {
+  constexpr int NT = tc::kChunkTiles;
+  static_assert((M / 2) % tc::kChunk == 0, "whole chunks of centre columns");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int n0 = M / 4; n0 < 3 * M / 4; n0 += tc::kChunk) {
+    float yre[NT][4], yim[NT][4];
+    tc::strip_product_a<M>(cre, cim, tab, tab + M * M, n0, yre, yim);
+    // Accumulator (jt, 2 hh + e) is (n1 = r0 + g + 8 hh, n2 = n0 + 8 jt +
+    // 2t + e): staged row n2 - n0, bytes 2 (g + 8 hh).
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<uint16_t*>(st + stage_offset(8 * jt + 2 * t + e, 2 * (g + 8 * hh))) =
+              wire_pair(yre[jt][2 * hh + e], yim[jt][2 * hh + e]);
+    __syncwarp();
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const int row = pass * 16 + (lane >> 1);
+      const int half = lane & 1;
+      const int4 v = *reinterpret_cast<const int4*>(st + stage_offset(row, 16 * half));
+      __stcs(reinterpret_cast<int4*>(out + (n0 - M / 4 + row) * (2 * M) + 2 * r0 + 16 * half), v);
+    }
+    __syncwarp();
   }
 }
 

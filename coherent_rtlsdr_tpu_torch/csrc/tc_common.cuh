@@ -1,9 +1,9 @@
 // Tensor-core helpers of the hand-written kernels (fourstep.cu, and the i8
-// measure kernels of fused_measure.cu through fused_common.cuh): bf16
-// matrices in swizzled shared memory, ldmatrix fragment loads, the
-// mma.sync m16n8k16 bf16 x bf16 -> f32 product, the twiddle, the complex
-// products of a warp's 16-row strip, and named barriers between the warps
-// of a warp-specialised block.
+// measure and apply kernels of fused_measure.cu / fused_apply.cu through
+// fused_common.cuh): bf16 matrices in swizzled shared memory, ldmatrix
+// fragment loads, the mma.sync m16n8k16 bf16 x bf16 -> f32 product, the
+// twiddle, the complex products of a warp's 16-row strip, named barriers
+// between the warps of a warp-specialised block, and the persistent grid.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 (row-major):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -199,14 +199,15 @@ __device__ __forceinline__ void twiddle_to_a(const float (&are)[kChunkTiles][4],
   }
 }
 
-// acc = C R over the strip and chunk cc, with C the strip's A fragments
-// (cre, cim; M / 16 k steps) and R (rre, rim) a symmetric table read as
-// stored [n][k].
+// acc = C R over the strip and the kChunk columns from n_base (a multiple
+// of 16; cc kChunk for chunk cc), with C the strip's A fragments (cre, cim;
+// M / 16 k steps) and R (rre, rim) a symmetric table read as stored [n][k].
+// Accumulator (jt, 2 hh + e) is element (r0 + g + 8 hh, n_base + 8 jt + 2t + e).
 template <int M>
 __device__ __forceinline__ void strip_product_a(const uint32_t (&cre)[M / 16][4],
                                                 const uint32_t (&cim)[M / 16][4],
                                                 const __nv_bfloat16* rre,
-                                                const __nv_bfloat16* rim, int cc,
+                                                const __nv_bfloat16* rim, int n_base,
                                                 float (&dre)[kChunkTiles][4],
                                                 float (&dim)[kChunkTiles][4]) {
 #pragma unroll
@@ -220,8 +221,8 @@ __device__ __forceinline__ void strip_product_a(const uint32_t (&cre)[M / 16][4]
 #pragma unroll
     for (int p = 0; p < kChunkTiles / 2; ++p) {
       uint32_t bre[4], bim[4];
-      ldsm_b<M>(rre, cc * kChunk + p * 16, kk * 16, bre);
-      ldsm_b<M>(rim, cc * kChunk + p * 16, kk * 16, bim);
+      ldsm_b<M>(rre, n_base + p * 16, kk * 16, bre);
+      ldsm_b<M>(rim, n_base + p * 16, kk * 16, bim);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         cmma(dre[2 * p + h], dim[2 * p + h], cre[kk], cim[kk], ncim, bre[2 * h],
@@ -239,6 +240,32 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The persistent grid of `kernel` (`threads` a CTA, `smem` bytes of dynamic
+// shared memory) for a batch of B work items: every CTA that fits on the
+// card at once (a whole number of waves), at most B. The first call on a
+// device sets the kernel's shared memory and asks for its occupancy into
+// `capacity` (the caller's, one per kernel; 0 until asked); later calls
+// reuse it. Returns the grid, or minus a CUDA error code.
+constexpr int kMaxDevices = 64;
+
+template <class Kernel>
+int persistent_grid(Kernel kernel, int threads, int smem, int B, int (&capacity)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && capacity[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+    if (err == cudaSuccess) capacity[dev] = sms * per_sm;
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return B < capacity[dev] ? B : capacity[dev];
 }
 
 }  // namespace tc

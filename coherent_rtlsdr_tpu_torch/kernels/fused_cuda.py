@@ -96,6 +96,12 @@ TC_MEASURE_KERNELS = tuple(
     [f"fused::measure_ref_kernel<{m}>" for m in SUPPORTED_M]
     + [f"fused::measure_kernel<{m}, {d}>" for m in SUPPORTED_M for d in (1, 0)])
 
+# The i8 apply kernels on the tensor cores, by their ptxas_usage names: {the
+# spectrum handoff's persistent kernel, the recompute kernel} x m.
+TC_APPLY_KERNELS = tuple(
+    [f"fused::apply_spec_kernel<{m}>" for m in SUPPORTED_M]
+    + [f"fused::apply_i8_kernel<{m}>" for m in SUPPORTED_M])
+
 
 def _kernel_name(mangled: str) -> str:
     """``ns::name<1, 2>`` for the Itanium-mangled name of a function

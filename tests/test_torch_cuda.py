@@ -131,13 +131,50 @@ def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_d
 
 @pytest.mark.cuda
 def test_measure_kernels_use_no_stack_on_card(cuda_device):
-    """ptxas: the six tensor-core measure instantiations ({reference,
-    channels with and without D} x m in {64, 128}) use no stack frame and
-    spill nothing."""
-    usage = fused_cuda.ptxas_usage(fused_cuda.build()["fused_measure.cu"])
-    for name in fused_cuda.TC_MEASURE_KERNELS:
-        assert (usage[name]["stack"], usage[name]["spill_stores"],
-                usage[name]["spill_loads"]) == (0, 0, 0), (name, usage[name])
+    """ptxas: the ten tensor-core i8 instantiations, the six measure ones
+    ({reference, channels with and without D} x m in {64, 128}) and the four
+    apply ones ({handoff, recompute} x m), use no stack frame and spill
+    nothing."""
+    report = fused_cuda.build()
+    for src, names in (("fused_measure.cu", fused_cuda.TC_MEASURE_KERNELS),
+                       ("fused_apply.cu", fused_cuda.TC_APPLY_KERNELS)):
+        usage = fused_cuda.ptxas_usage(report[src])
+        for name in names:
+            assert (usage[name]["stack"], usage[name]["spill_stores"],
+                    usage[name]["spill_loads"]) == (0, 0, 0), (name, usage[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
+def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
+    """Both i8 apply kernels (the handoff's persistent grid, the recompute
+    kernel) against their plain versions by the wire bars, on correlated
+    bytes: one window of 21 channels (a streaming step), a single channel,
+    and 26 x 21 windows, no whole number of rounds of the persistent grid;
+    among the advances a large negative and a fractional one."""
+    t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
+    k = FusedPipelineKernels(m * m, cuda_device)
+    raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
+    spec = k.measure_spec_plain(raw, *k.measure_ref_plain(ref_raw))
+    g = torch.Generator(device=cuda_device).manual_seed(m + t)
+    adv = (torch.rand((t - 1, n), generator=g, device=cuda_device) - 0.5) * 80.0
+    adv.view(-1)[0] = -1500.25
+    adv.view(-1)[-1] = 1023.5
+    ph = torch.rand((t - 1, n), generator=g, device=cuda_device) * 6.283185307179586
+    args = (adv, torch.cos(ph), torch.sin(ph))
+    k.reset_counts()
+    pairs = ((k.apply_spec_i8(spec[5], spec[6], *args), k.apply_spec_i8_plain(spec[5], spec[6], *args)),
+             (k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args)))
+    torch.cuda.synchronize()
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(
+        apply_spec_i8_launches=1, apply_spec_i8_plain_runs=1, apply_i8_launches=1,
+        apply_i8_plain_runs=1)
+    for got, want in pairs:
+        assert got.dtype == torch.int8 and got.shape == (t - 1, n, m // 2, 2 * m)
+        assert want.int().abs().max().item() >= 8
+        d = (got.int() - want.int()).abs()
+        assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
 
 
 @pytest.mark.cuda

@@ -217,8 +217,8 @@ def test_no_fallback_without_the_card(monkeypatch, tmp_path):
     assert set(fk.counts().values()) == {0}
 
 
-# The shape of an `nvcc -Xptxas -v` report: an entry kernel with a stack
-# frame, one without, a device function that is not an entry, and a C entry.
+# The shape of an `nvcc -Xptxas -v` report: entry kernels with and without a
+# stack frame, a device function that is not an entry, and a C entry.
 _PTXAS = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN5fused14measure_kernelILi128ELb1EEEvPKaPK6float2S4_PKfPfS8_S8_S8_S8_P13__nv_bfloat16SA_' for 'sm_90a'
@@ -231,6 +231,14 @@ ptxas info    : Compiling entry function '_ZN5fused18measure_ref_kernelILi64EEEv
 ptxas info    : Function properties for _ZN5fused18measure_ref_kernelILi64EEEvPKaPK6float2S4_PS2_Pf
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5fused17apply_spec_kernelILi128EEEvPK13__nv_bfloat16S3_PKfS5_S5_PK6float2S8_Pai' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fused17apply_spec_kernelILi128EEEvPK13__nv_bfloat16S3_PKfS5_S5_PK6float2S8_Pai
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5fused15apply_i8_kernelILi64EEEvPKaPKfS4_S4_PK6float2S7_S7_Pa' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fused15apply_i8_kernelILi64EEEvPKaPKfS4_S4_PK6float2S7_S7_Pa
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers, 416 bytes cmem[0]
 ptxas info    : Compiling entry function 'probe_entry' for 'sm_90a'
 ptxas info    : Function properties for probe_entry
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -245,8 +253,15 @@ def test_ptxas_usage_reads_each_entry_kernel():
                                               spill_loads=0),
         "fused::measure_ref_kernel<64>": dict(registers=96, stack=8, spill_stores=4,
                                               spill_loads=12),
+        "fused::apply_spec_kernel<128>": dict(registers=154, stack=0, spill_stores=0,
+                                              spill_loads=0),
+        "fused::apply_i8_kernel<64>": dict(registers=122, stack=32, spill_stores=0,
+                                           spill_loads=0),
         "probe_entry": dict(registers=10, stack=0, spill_stores=0, spill_loads=0),
     }
     assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 6
     assert {"fused::measure_kernel<128, 1>", "fused::measure_ref_kernel<64>"} < set(
         fused_cuda.TC_MEASURE_KERNELS)
+    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 4
+    assert {"fused::apply_spec_kernel<128>", "fused::apply_i8_kernel<64>"} < set(
+        fused_cuda.TC_APPLY_KERNELS)
