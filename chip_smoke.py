@@ -28,17 +28,19 @@ kernels):
      plain version and torch.fft, at B = 42 and at the batch sizes that
      exercise its persistent grid of one CTA an SM (1, SMs - 1, SMs + 1,
      3 SMs + 5), and the float measure/apply kernels against theirs at
-     N = 21, on random and correlated planes;
+     N = 21, on random and correlated planes, with advances of large
+     integer part among the windows;
   9. the generic offline engine at T = 256: samples/s over >= 5 timed runs,
      peak memory, four-step launch counts; once with fft_impl="xla"
      (cuFFT) beside it;
  10. generic quality against synthetic truth;
  11. the generic streaming runner at K = 32 for 4 calls;
  12. ``FusedSpectral`` prepare -> measure -> correct at T = 256, by its
-     launch counts;
+     launch counts, then timed over 3 more calls;
  13. the four-step kernel (B = 5,355 transforms) against its plain version
      and ``torch.fft``, timed over runs of launches, and the float
-     measure/apply kernels against theirs, at the offline shapes.
+     measure/apply kernels against theirs, at the offline shapes, timed
+     and once under torch.profiler for their device times.
 
 The recompute i8 pair (``measure_i8`` -> ``apply_i8``) and the roofline
 probe with its block copy:
@@ -56,9 +58,9 @@ probe with its block copy:
 
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the ptxas report of every kernel
-(registers, stack, spills; the ten tensor-core i8 instantiations, six
-measure and four apply, must use no stack and spill nothing), the card's
-name and power limit
+(registers, stack, spills; the fourteen tensor-core instantiations of the
+measure and apply kernels, eight measure and six apply, must use no stack
+and spill nothing), the card's name and power limit
 and a JSON summary of the nine kernels (times, launches, errors, and the
 bound from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and
 bf16 operations over 989 TFLOP/s); the last line is ``{"ok": true,
@@ -449,6 +451,7 @@ def phase_generic_kernels(dev):
             planes = planes_from_i8(raw, ref_raw, fk)
             errs = hold_float_measure(k, planes, where)
             adv = (torch.rand((4, N_CH), generator=g, device=dev) - 0.5) * 80.0
+            adv[0, 0], adv[0, 1] = -1500.25, 1023.5
             errs.update(hold_float_apply(k, planes, adv, where))
             out.append(dict(kernel="measure/apply", m=m, N=N_CH, T=5, inputs=kind, **errs))
     return out
@@ -788,18 +791,27 @@ def main():
     sig_c = u8_to_c64(sig_u8.reshape(T_OFFLINE, N_CH, L, 2))
     ref_c = u8_to_c64(ref_u8.reshape(T_OFFLINE, L, 2))
     fsp = FusedSpectral(2 * L, dev)
+    fctx = fest = fy = None
+
+    def drive_fsp():
+        nonlocal fctx, fest, fy
+        fy = None   # the previous call's output, freed before the next one
+        fctx = fsp.prepare(sig_c, ref_c)
+        fest = fsp.measure(fctx, "phase_zoom")
+        fy = fsp.correct(fctx, fest.lag)
+
     fk.reset_counts()
     k.reset_counts()
-    fctx = fsp.prepare(sig_c, ref_c)
-    fest = fsp.measure(fctx, "phase_zoom")
-    fy = fsp.correct(fctx, fest.lag)
+    drive_fsp()
     torch.cuda.synchronize()
     counts_fsp = {**fk.counts(), **k.counts()}
     launched_only(fk.counts(), dict(fft_launches=1), "FusedSpectral (four-step)")
     launched_only(k.counts(), dict(measure_launches=1, apply_launches=1),
                   "FusedSpectral (float measure/apply)")
     f_err = float(abs(fest.lag.median(dim=0).values.cpu().numpy() - cap.truth.delays).max())
+    fsp_runs = [cuda_ms(drive_fsp) for _ in range(3)]
     emit(dict(phase="fused_spectral", card=smi, N=N_CH, L=L, T=T_OFFLINE,
+              ms_median=statistics.median(fsp_runs), ms_runs=fsp_runs,
               launches={name: n for name, n in counts_fsp.items() if n},
               max_abs_median_lag_minus_truth=f_err, mag_min=fest.mag.min().item()))
     if not (tuple(fy.shape) == (T_OFFLINE - 1, N_CH, L)
@@ -835,8 +847,12 @@ def main():
         ("measure", "apply"), ("_plain", ""))
     ms13.update(ms13b)
     runs13.update(runs13b)
+    # Device time of each float kernel: one measure and one apply under the
+    # profiler.
+    prof13 = device_profile(lambda: (fns["measure"](), fns["apply"]()))
     emit(dict(phase="generic_kernel_times", card=smi, N=N_CH, L=L, T=T_OFFLINE, B=B, ms=ms13,
-              runs=runs13, fft_reps=FFT_REPS, kernel_vs_plain=errs13,
+              runs=runs13, fft_reps=FFT_REPS, fused_kernel_ms=prof13["fused_kernel_ms"],
+              kernel_vs_plain=errs13,
               kernel_over_torch_fft=dict(fft=ms13["fft"] / ms13["fft_lib"],
                                          ifft=ms13["ifft"] / ms13["ifft_lib"])))
 
@@ -921,8 +937,9 @@ def main():
     # samples for the i8 measure kernels, wire LSB for the i8 applies,
     # |diff| of the spectrum for the four-step and of the samples for the
     # float apply, bytes for the copy). ms, plain_ms, library_ms: medians at
-    # the offline shapes (phases 6, 13, 14 and 15). bound_ms, bound_by:
-    # tools/cost_model.py at those shapes.
+    # the offline shapes (phases 6, 13, 14 and 15). device_ms: the kernel's
+    # time under torch.profiler (phase 7 for the handoff apply, 13 for the
+    # float pair). bound_ms, bound_by: tools/cost_model.py at those shapes.
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
                 for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
@@ -940,7 +957,7 @@ def main():
     fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"])
-    # Registers, stack and spills of every kernel; the ten tensor-core i8
+    # Registers, stack and spills of every kernel; the fourteen tensor-core
     # instantiations (measure and apply) must use no stack and spill nothing.
     ptxas = {src: fused_cuda.ptxas_usage(report[src]) for src in fused_cuda.SOURCES}
     emit(dict(phase="ptxas", **ptxas))
@@ -951,7 +968,8 @@ def main():
     spilled = [name for name, u in tc_ptxas.items()
                if u is None or u["stack"] or u["spill_stores"] or u["spill_loads"]]
     if spilled:
-        raise AssertionError(f"i8 kernels with stack or spills (or no report): {spilled}")
+        raise AssertionError(f"tensor-core kernels with stack or spills (or no report): "
+                             f"{spilled}")
     print(smi, flush=True)
     emit({"kernels": [
         entry("fused_measure_ref", "fused_measure.cu", tpu + "pallas_fused.py:356",
@@ -976,10 +994,12 @@ def main():
               plain_ms_inverse=ms13["ifft_plain"], library_ms_inverse=ms13["ifft_lib"]),
         entry("fused_measure_planes", "fused_measure.cu", tpu + "pallas_fused.py:185",
               cost_model.measure_planes(*shape), counts_fsp["measure_launches"],
-              errs13["lag_max_abs_err"], ms13["measure"], ms13["measure_plain"]),
+              errs13["lag_max_abs_err"], ms13["measure"], ms13["measure_plain"],
+              device_ms=prof13["fused_kernel_ms"].get(f"fused::measure_planes_kernel<{m}>")),
         entry("fused_apply_planes", "fused_apply.cu", tpu + "pallas_fused.py:220",
               cost_model.apply_planes(*shape), counts_fsp["apply_launches"],
-              errs13["y_max_abs_err"], ms13["apply"], ms13["apply_plain"]),
+              errs13["y_max_abs_err"], ms13["apply"], ms13["apply_plain"],
+              device_ms=prof13["fused_kernel_ms"].get(f"fused::apply_planes_kernel<{m}>")),
         entry("copy_blocks", "probe_copy.cu", "tools/probe_roofline.py:68",
               cost_model.copy_blocks(*shape), counts_probe["copy_launches"], 0,
               ms15["copy"], ms15["copy_plain"], ms15["copy_lib"]),

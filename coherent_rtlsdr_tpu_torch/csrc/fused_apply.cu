@@ -15,22 +15,27 @@
 // Plain PyTorch versions: coherent_rtlsdr_tpu_torch/kernels/fused.py
 // (apply_spec_i8_plain, apply_i8_plain, apply_plain).
 //
-// Design of the i8 kernels. What bounds them on the H100: the products, a
-// complex m x m by m x m one (C2 = G Fi, 8m^3 = 16.8 MFLOP a window at m =
-// 128) and its centre half (y = Fi[m/4:3m/4] B2, 8.4 MFLOP), plus the forward
-// transform (33.6 MFLOP) where it is recomputed, against 64 kB (bf16
-// spectrum) or 32 kB (int8 window) in and 16 kB of wire bytes out a window:
-// over 5,355 windows 0.136 ms of products at the bf16 tensor-core peak
-// against 0.131 ms of bytes (spectrum in), so only a load that overlaps the
-// products gets near the bound. The products run on the tensor cores
-// (fused_common.cuh: the transposed inverse inverse_tc_first /
-// inverse_tc_centre_wire, mma.sync m16n8k16 bf16 -> f32, a warp a 16-row
-// strip, B2 kept in registers as the second product's A fragments, only the
-// centre columns of the second product, the wire bytes staged a chunk a
-// warp and stored 16 bytes a lane). The ramp is built per element from the
-// advance (exact integer part, then the fractional part times the signed
-// frequency), so no ramp table is read; sincospif of the ramp in turns
-// (exact argument reduction) keeps the kernels free of a stack frame.
+// Design. What bounds them on the H100: the products, a complex m x m by
+// m x m one (C2 = G Fi, 8m^3 = 16.8 MFLOP a window at m = 128) and its
+// centre half (y = Fi[m/4:3m/4] B2, 8.4 MFLOP), plus the forward transform
+// (33.6 MFLOP; 58.8 in all) where it is recomputed, against 64 kB (bf16
+// spectrum or bf16 planes) or 32 kB (int8 window) in and 16 kB of wire
+// bytes or 64 kB of float32 samples out a window: over 5,355 windows
+// 0.136 ms of products at the bf16 tensor-core peak against 0.131 ms of
+// bytes for the handoff (spectrum in), 0.32 ms of products against
+// 0.08-0.16 ms of bytes (each block read once) where the forward is
+// recomputed, so only a load that overlaps the products gets near the
+// bound. The products run on the tensor cores
+// (fused_common.cuh: forward_tc, then the transposed inverse
+// inverse_tc_first / inverse_tc_centre, mma.sync m16n8k16 bf16 -> f32, a
+// warp a 16-row strip, B2 kept in registers as the second product's A
+// fragments, only the centre columns of the second product). Its epilogue
+// is the int8 wire (WireChunk: quantized, staged a chunk a warp, stored 16
+// bytes a lane) or the float32 samples (FloatChunk: streaming stores, each
+// instruction four whole 32-byte sectors). The ramp is built per element
+// from the advance (exact integer part, then the fractional part times the
+// signed frequency), so no ramp table is read; sincospif of the ramp in
+// turns (exact argument reduction) keeps the kernels free of a stack frame.
 //   * apply_spec_kernel: a persistent grid (one CTA an SM at m = 128). Four
 //     producer warps stream the next window's D (16-byte loads), multiply
 //     it by the ramp and phase factor, and write G = bf16(D w) swizzled into
@@ -38,17 +43,18 @@
 //     the inverse of the other; named barriers hand the buffers over, as in
 //     fourstep.cu. Shared memory at m = 128: the Fi table (64 kB), two G
 //     buffers (128 kB), a 1 kB staging tile a consumer warp: 204,800 bytes.
-//   * apply_i8_kernel: one CTA a window, m / 16 warps: the window's bytes
-//     (load_window_i8), forward_tc with F, whose epilogue writes G = bf16(D
-//     w) from the float32 D over the window's buffer (forward_tc's barrier
-//     between its products frees it), then the inverse with Fi. Shared
-//     memory at m = 128: F and Fi as separate tables (2 x 64 kB; Fi is not
-//     reloaded over F, which the second forward product still reads), the
-//     window / G (64 kB) and the staging tiles: 204,800 bytes.
-// The float kernel (apply_planes_kernel) keeps the SIMT forward_fft /
-// inverse_fft: one CTA of 256 threads per (t, n), 197,152 bytes of shared
-// memory at m = 128 (forward_fft's regions: the window A as float2, then G
-// as bf16 in its place; C, then B2).
+//   * apply_i8_kernel and apply_planes_kernel: one CTA a window, m / 16
+//     warps, one body (apply_window): the window's bytes (load_window_i8)
+//     or planes (load_window_planes), forward_tc with F, whose epilogue
+//     writes G = bf16(D w) from the float32 D over the window's buffer
+//     (forward_tc's barrier between its products frees it), then the
+//     inverse with Fi. The float path's weight is the ramp alone (no phase
+//     factor). Shared memory at m = 128: F and Fi as separate tables (2 x
+//     64 kB; Fi is not reloaded over F, which the second forward product
+//     still reads) and the window / G (64 kB), 196,608 bytes, plus the
+//     staging tiles (8 kB) for the wire.
+// The load has no overlap with the products in the one-CTA kernels; the
+// persistent grid with producer warps is the model for that.
 
 #include "fused_common.cuh"
 
@@ -73,17 +79,13 @@ struct ApplySpecPlan {
       6 * kPlane * sizeof(__nv_bfloat16) + kConsumerWarps * kWireStage;
 };
 
-// apply_i8_kernel: the F and Fi tables, the window / G and the staging tiles.
+// The one-CTA kernels: the F and Fi tables and the window / G, kTable bytes
+// each, then the staging tiles where the epilogue is the wire.
 template <int M>
-struct ApplyI8Smem {
+struct ApplySmem {
   static constexpr size_t kTable = 2 * sizeof(__nv_bfloat16) * M * M;
-  static constexpr size_t kBytes = 3 * kTable + (M / 16) * kWireStage;
-};
-
-template <int M>
-struct ApplyPlanesSmem {
-  static constexpr size_t kRegionA = sizeof(float2) * M * M;
-  static constexpr size_t kBytes = kRegionA + SmemBf16Matrix<M>::kBytes;
+  static constexpr size_t kFloatBytes = 3 * kTable;
+  static constexpr size_t kWireBytes = kFloatBytes + (M / 16) * kWireStage;
 };
 
 // Ramp of natural bin k for delay d = di + df (di integer, df in [0, 1)), in
@@ -93,13 +95,6 @@ struct ApplyPlanesSmem {
 template <int W>
 __device__ __forceinline__ float ramp_turns(uint32_t k, int d_int, float df) {
   return __fadd_rn(iramp_fraction<W>(k, d_int), __fmul_rn(signed_freq<W>(k), df));
-}
-
-// The same in radians, fl(turns * 2 pi) as the plain version rounds it (the
-// float kernel).
-template <int W>
-__device__ __forceinline__ float ramp_phase(uint32_t k, int d_int, float df) {
-  return __fmul_rn(ramp_turns<W>(k, d_int, df), kTwoPi);
 }
 
 // The delay and phase factor of one window: the apply weight of natural bin
@@ -134,11 +129,6 @@ struct Ramp {
                       tc::pack_bf16(d0.x * w0.y + d0.y * w0.x, d1.x * w1.y + d1.y * w1.x));
   }
 };
-
-// The low and high bf16 of a word, exactly, as floats.
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
-}
 
 // Vector q of D (elements 8q..8q+7 of the window, row-major [k2][k1]), the
 // 16-byte words vr, vi of its re / im planes, times the ramp into G: one
@@ -219,7 +209,8 @@ __device__ __forceinline__ void consume_g(const __nv_bfloat16* tab, const __nv_b
     inverse_tc_first<M>(tab, win + s * 2 * P::kPlane, Tw, r0, cre, cim);
     // G is consumed: the producers may refill its buffer.
     if (j + 2 < n_local) tc::bar_arrive(kEmpty + s, P::kThreads);
-    inverse_tc_centre_wire<M>(cre, cim, tab, st, r0, out + b * (M * M));
+    WireChunk<M> epi{st, r0, out + b * (M * M)};
+    inverse_tc_centre<M>(cre, cim, tab, epi);
   }
 }
 
@@ -250,37 +241,32 @@ apply_spec_kernel(const __nv_bfloat16* __restrict__ dre, const __nv_bfloat16* __
     consume_g<M>(tab, win, stage, Tw, out, n_local);
 }
 
-// The recompute path: int8 blocks raw [T, N, m/2, 2m] and advance, phase_re,
-// phase_im float [T-1, N]; writes int8 wire blocks out [T-1, N, m/2, 2m].
-// One CTA per (t, n) = (blockIdx.y, blockIdx.x).
-template <int M>
-__global__ void __launch_bounds__(kTcThreads<M>)
-apply_i8_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advance,
-                const float* __restrict__ phase_re, const float* __restrict__ phase_im,
-                const float2* __restrict__ F, const float2* __restrict__ Fi,
-                const float2* __restrict__ Tw, int8_t* __restrict__ out) {
+// The one-CTA body of the recompute applies: load(w) fills the window's
+// swizzled planes at w; after the load, make_ramp() gives the window's
+// Ramp, and G = bf16(D w) is formed from the float32 D of forward_tc; the
+// inverse's centre chunks of warp w's strip go to the epilogue epi_of(st,
+// w), st the staging tiles (where the wire epilogue has them).
+template <int M, class Load, class MakeRamp, class EpiOf>
+__device__ __forceinline__ void apply_window(const float2* __restrict__ F,
+                                             const float2* __restrict__ Fi,
+                                             const float2* __restrict__ Tw, Load load,
+                                             MakeRamp make_ramp, EpiOf epi_of) {
   constexpr int W = M * M;
-  using S = ApplyI8Smem<M>;
+  using S = ApplySmem<M>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* tab_f = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* tab_fi = reinterpret_cast<__nv_bfloat16*>(smem + S::kTable);
   __nv_bfloat16* win_s = reinterpret_cast<__nv_bfloat16*>(smem + 2 * S::kTable);
-  unsigned char* stage = smem + 3 * S::kTable;
-
-  const int n = blockIdx.x;
-  const int N = gridDim.x;
-  const int t = blockIdx.y;
-  const size_t win = static_cast<size_t>(t) * N + n;
 
   load_table<M>(F, tab_f);
   load_table<M>(Fi, tab_fi);
-  load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, win_s);
+  load(win_s);
   __syncthreads();
 
   // G = bf16(D w) from the float32 D, not a bf16-rounded one, over the
   // window's buffer: forward_tc's barrier between its products parts the
   // last read of the window from the first write of G.
-  const Ramp<M> ramp(advance[win], phase_re[win], phase_im[win]);
+  const Ramp<M> ramp = make_ramp();
   forward_tc<M>(tab_f, win_s, Tw, [&](int r, int c, float4 d) {
     const uint2 gw = ramp.g_pair(r, c, make_float2(d.x, d.y), make_float2(d.z, d.w));
     const int o = tc::swz<M>(r, c);
@@ -292,53 +278,58 @@ apply_i8_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advanc
   const int warp = threadIdx.x >> 5;
   uint32_t cre[M / 16][4], cim[M / 16][4];
   inverse_tc_first<M>(tab_fi, win_s, Tw, warp * 16, cre, cim);
-  inverse_tc_centre_wire<M>(cre, cim, tab_fi, stage + warp * kWireStage, warp * 16,
-                            out + win * W);
+  auto epi = epi_of(smem + S::kFloatBytes, warp);
+  inverse_tc_centre<M>(cre, cim, tab_fi, epi);
 }
 
-// The float path: block planes pre/pim bf16 [T, N, m/2, m], advance float
-// [T-1, N]; writes the centre half yre, yim float [T-1, N, m/2, m].
+// The recompute path: int8 blocks raw [T, N, m/2, 2m] and advance, phase_re,
+// phase_im float [T-1, N]; writes int8 wire blocks out [T-1, N, m/2, 2m].
+// One CTA per (t, n) = (blockIdx.y, blockIdx.x).
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads<M>)
+apply_i8_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advance,
+                const float* __restrict__ phase_re, const float* __restrict__ phase_im,
+                const float2* __restrict__ F, const float2* __restrict__ Fi,
+                const float2* __restrict__ Tw, int8_t* __restrict__ out) {
+  constexpr int W = M * M;
+  const int n = blockIdx.x;
+  const int N = gridDim.x;
+  const int t = blockIdx.y;
+  const size_t win = static_cast<size_t>(t) * N + n;
+  apply_window<M>(
+      F, Fi, Tw,
+      [&](__nv_bfloat16* w) { load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, w); },
+      [&] { return Ramp<M>(advance[win], phase_re[win], phase_im[win]); },
+      [&](unsigned char* stage, int warp) {
+        return WireChunk<M>{stage + warp * kWireStage, warp * 16, out + win * W};
+      });
+}
+
+// The float path: block planes pre/pim bf16 [T, N, m/2, m] and advance
+// float [T-1, N]; writes the centre half yre, yim float [T-1, N, m/2, m]
+// (row n2 - m/4 of a window holds samples n1). One CTA per (t, n) =
+// (blockIdx.y, blockIdx.x).
+template <int M>
+__global__ void __launch_bounds__(kTcThreads<M>)
 apply_planes_kernel(const __nv_bfloat16* __restrict__ pre, const __nv_bfloat16* __restrict__ pim,
                     const float* __restrict__ advance, const float2* __restrict__ F,
                     const float2* __restrict__ Fi, const float2* __restrict__ Tw,
                     float* __restrict__ yre_out, float* __restrict__ yim_out) {
   constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* A = reinterpret_cast<float2*>(smem);
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + ApplyPlanesSmem<M>::kRegionA)};
-  // After the forward transform A is free (G goes there) and, once the
-  // first inverse product has read G, so is C (B2 goes there).
-  SmemBf16Matrix<M> G{reinterpret_cast<__nv_bfloat162*>(smem)};
-
   const int n = blockIdx.x;
   const int N = gridDim.x;
   const int t = blockIdx.y;
   const size_t win = static_cast<size_t>(t) * N + n;
-  const size_t top = win * (W / 2);
-
-  const float d = -advance[win];
-  const float di = floorf(d);
-  const float df = d - di;
-  const int d_int = static_cast<int>(di);
-
-  // G = D exp(-2 pi i (iramp(floor(d)) + f frac(d))), written as bf16 over
-  // region A: forward_fft's last product reads only C and F.
-  forward_fft<M>(
-      [&](float2* a) { load_planes<M>(pre + top, pim + top, static_cast<size_t>(N) * (W / 2), a); },
-      F, Tw, A, C, [&](int r, int c, float dre, float dim) {
-        float s, co;
-        sincosf(ramp_phase<W>(static_cast<uint32_t>(r + M * c), d_int, df), &s, &co);
-        G.set(r, c, dre * co + dim * s, dim * co - dre * s);  // D (co - i s)
+  const size_t top = win * (W / 2);  // block t of channel n; also the window's output
+  apply_window<M>(
+      F, Fi, Tw,
+      [&](__nv_bfloat16* w) {
+        load_window_planes<M>(pre + top, pim + top, static_cast<size_t>(N) * (W / 2), w);
+      },
+      [&] { return Ramp<M>(advance[win], 1.f, 0.f); },
+      [&](unsigned char*, int warp) {
+        return FloatChunk<M>{warp * 16, yre_out + top, yim_out + top};
       });
-
-  float* yr = yre_out + win * (W / 2);
-  float* yi = yim_out + win * (W / 2);
-  inverse_fft<M, M / 2>(G, C, Fi, Tw, [&](int r, int c, float yre, float yim) {
-    yr[r * M + c] = yre;
-    yi[r * M + c] = yim;
-  });
 }
 
 template <int M>
@@ -363,7 +354,7 @@ template <int M>
 int launch_i8(const void* raw, const void* advance, const void* phase_re, const void* phase_im,
               const void* F, const void* Fi, const void* Tw, void* out, int T1, int N,
               void* stream) {
-  const int smem = static_cast<int>(ApplyI8Smem<M>::kBytes);
+  const int smem = static_cast<int>(ApplySmem<M>::kWireBytes);
   const cudaError_t err = set_smem(apply_i8_kernel<M>, smem);
   if (err != cudaSuccess) return err;
   apply_i8_kernel<M><<<dim3(N, T1), kTcThreads<M>, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -378,10 +369,11 @@ template <int M>
 int launch_planes(const void* pre, const void* pim, const void* advance, const void* F,
                   const void* Fi, const void* Tw, void* yre, void* yim, int T1, int N,
                   void* stream) {
-  const int smem = static_cast<int>(ApplyPlanesSmem<M>::kBytes);
+  const int smem = static_cast<int>(ApplySmem<M>::kFloatBytes);
   const cudaError_t err = set_smem(apply_planes_kernel<M>, smem);
   if (err != cudaSuccess) return err;
-  apply_planes_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  apply_planes_kernel<M>
+      <<<dim3(N, T1), kTcThreads<M>, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
       static_cast<const float*>(advance), static_cast<const float2*>(F),
       static_cast<const float2*>(Fi), static_cast<const float2*>(Tw), static_cast<float*>(yre),

@@ -1,6 +1,6 @@
 // Shared device helpers of the measure and apply kernels (fused_measure.cu,
-// fused_apply.cu). fourstep.cu runs its products on the tensor cores with
-// tc_common.cuh and uses none of these; probe_copy.cu needs none either.
+// fused_apply.cu). fourstep.cu runs its products with tc_common.cuh alone,
+// and probe_copy.cu needs none of these.
 //
 // Layouts (W = m*m, m in {64, 128}):
 //   * a stream block is int8 [m/2, 2m]: row r holds samples [r*m, (r+1)*m)
@@ -12,18 +12,19 @@
 //     F and conj(F)/m hold bf16-rounded values (the JAX kernels cast them to
 //     bf16), the twiddle T is full float32.
 //
-// Every complex matrix product here takes bf16-valued operands and
-// accumulates in float32, as the TPU's bf16/f32 matmul does (a product of
-// two bf16 values is exact in float32), so the kernels equal it up to
-// summation order. Two forms of the transforms:
-//   * on the tensor cores (tc_common.cuh, the strip designs of fourstep.cu's
-//     consumers): forward_tc, in the i8 measure kernels (measure_ref_kernel,
-//     measure_kernel) and the recompute apply (apply_i8_kernel); the
-//     inverse's centre rows to int8 wire bytes, inverse_tc_first then
-//     inverse_tc_centre_wire, in both i8 apply kernels (apply_spec_kernel,
-//     apply_i8_kernel);
-//   * forward_fft / inverse_fft on cmatmul, the SIMT FMA units: the float
-//     measure and apply kernels (measure_planes_kernel, apply_planes_kernel).
+// Every complex matrix product here takes bf16 operands and accumulates in
+// float32 on the tensor cores (tc_common.cuh: mma.sync m16n8k16, a warp a
+// 16-row strip, the strip designs of fourstep.cu's consumers), as the TPU's
+// bf16/f32 matmul does (a product of two bf16 values is exact in float32),
+// so the kernels equal it up to summation order. Every measure and apply
+// kernel is one CTA a window of m / 16 warps, or a persistent grid of them:
+//   * the forward transform forward_tc, after a window loader
+//     (load_window_i8 for int8 blocks, load_window_planes for bf16 planes)
+//     and the table loader load_table;
+//   * the inverse's overlap-save centre, inverse_tc_first then
+//     inverse_tc_centre, whose per-chunk epilogue writes int8 wire bytes
+//     through a per-warp staging tile (WireChunk) or float32 samples
+//     straight to device memory (FloatChunk).
 
 #pragma once
 
@@ -34,9 +35,6 @@
 #include "tc_common.cuh"
 
 namespace fused {
-
-constexpr int kThreads = 256;                    // a 16 x 16 thread grid (SIMT kernels)
-constexpr float kTwoPi = 6.283185307179586f;     // float32(2*pi)
 
 // Lets `kernel` be launched with `bytes` of dynamic shared memory (above
 // 48 kB only after this call).
@@ -78,138 +76,14 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// One complex matrix product over the block:
-//   out[r, c] = sum_k left(r, k) * right(k, c),   k < K,
-// where thread (ty, tx) of the 16 x 16 grid owns rows r = ty + 16 i (i < TM)
-// and columns c = tx + 16 j (j < TN), and hands each finished element to
-// epi(r, c, re, im). left/right return float2 (re, im) and may read shared
-// or global memory; consecutive tx read consecutive columns of right.
-template <int TM, int TN, int K, class Left, class Right, class Epi>
-__device__ __forceinline__ void cmatmul(Left left, Right right, Epi epi) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc_re[TM][TN];
-  float acc_im[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc_re[i][j] = acc_im[i][j] = 0.f;
-
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float2 a[TM];
-    float2 b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = left(ty + 16 * i, k);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = right(k, tx + 16 * j);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        acc_re[i][j] = fmaf(a[i].x, b[j].x, acc_re[i][j]);
-        acc_re[i][j] = fmaf(-a[i].y, b[j].y, acc_re[i][j]);
-        acc_im[i][j] = fmaf(a[i].x, b[j].y, acc_im[i][j]);
-        acc_im[i][j] = fmaf(a[i].y, b[j].x, acc_im[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      epi(ty + 16 * i, tx + 16 * j, acc_re[i][j], acc_im[i][j]);
+// The low and high bf16 of a word, exactly, as floats.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
 }
 
-// A complex bf16 matrix in shared memory, rows padded by one element so the
-// two rows that a warp reads at once fall in different banks.
-template <int M>
-struct SmemBf16Matrix {
-  __nv_bfloat162* p;
-  static constexpr int kStride = M + 1;
-  static constexpr size_t kBytes = sizeof(__nv_bfloat162) * M * kStride;
-  __device__ __forceinline__ float2 get(int r, int c) const {
-    return __bfloat1622float2(p[r * kStride + c]);
-  }
-  __device__ __forceinline__ void set(int r, int c, float re, float im) const {
-    p[r * kStride + c] = __floats2bfloat162_rn(re, im);
-  }
-};
-
-// Forward four-step FFT of one window: load(A) fills A (float2 [m*m],
-// row-major, shared) with bf16-valued (re, im); then B = F A,
-// C = bf16(B * T) into C, D = C F. Hands each D element to
-// d_epi(r, c, re, im); every thread has passed a __syncthreads on return.
-template <int M, class Load, class DEpi>
-__device__ __forceinline__ void forward_fft(Load load, const float2* __restrict__ F,
-                                            const float2* __restrict__ Tw, float2* A,
-                                            SmemBf16Matrix<M> C, DEpi d_epi) {
-  load(A);
-  __syncthreads();
-
-  // B[k2, n1] = sum_n2 F[k2, n2] A[n2, n1]; F is symmetric, so read row n2.
-  cmatmul<M / 16, M / 16, M>(
-      [&](int r, int k) { return F[k * M + r]; },
-      [&](int k, int c) { return A[k * M + c]; },
-      [&](int r, int c, float bre, float bim) {
-        const float2 t = Tw[r * M + c];
-        C.set(r, c, bre * t.x - bim * t.y, bre * t.y + bim * t.x);
-      });
-  __syncthreads();
-
-  // D[k2, k1] = sum_n1 C[k2, n1] F[n1, k1].
-  cmatmul<M / 16, M / 16, M>(
-      [&](int r, int k) { return C.get(r, k); },
-      [&](int k, int c) { return F[k * M + c]; },
-      d_epi);
-  __syncthreads();
-}
-
-// Window loader of the float path: fills A from two half-window bf16 plane
-// pairs, rows 0..m/2-1 from (re, im) and rows m/2..m-1 from (re + next,
-// im + next), the same channel's next block. Reads two bf16 a thread per
-// plane (the planes are 4-byte aligned: the host checks the base).
-template <int M>
-__device__ __forceinline__ void load_planes(const __nv_bfloat16* __restrict__ re,
-                                            const __nv_bfloat16* __restrict__ im, size_t next,
-                                            float2* A) {
-  constexpr int kHalf = M * M / 2;  // elements of a half-window
-  for (int i = threadIdx.x; i < M * M / 2; i += kThreads) {
-    const int e = 2 * i;  // element r*M + c of the window
-    const int half = e / kHalf;
-    const size_t off = half * next + (e - half * kHalf);
-    const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(re + off));
-    const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(im + off));
-    A[e] = make_float2(r.x, q.x);
-    A[e + 1] = make_float2(r.y, q.y);
-  }
-}
-
-// Inverse four-step of a permuted spectrum G (bf16, shared): C2 = G Fi,
-// B = bf16(C2 conj(T)) into B, then rows r0..r0+ROWS-1 of A = Fi B with
-// r0 = (M - ROWS)/2, each element handed to y_epi(r - r0, c, re, im).
-// Fi = conj(F)/m is symmetric, so its rows are read as columns.
-template <int M, int ROWS, class YEpi>
-__device__ __forceinline__ void inverse_fft(SmemBf16Matrix<M> G, SmemBf16Matrix<M> B,
-                                            const float2* __restrict__ Fi,
-                                            const float2* __restrict__ Tw, YEpi y_epi) {
-  cmatmul<M / 16, M / 16, M>(
-      [&](int r, int k) { return G.get(r, k); },
-      [&](int k, int c) { return Fi[k * M + c]; },
-      [&](int r, int c, float cre, float cim) {
-        const float2 tw = Tw[r * M + c];
-        B.set(r, c, cre * tw.x + cim * tw.y, cim * tw.x - cre * tw.y);
-      });
-  __syncthreads();
-  constexpr int r0 = (M - ROWS) / 2;
-  cmatmul<ROWS / 16, M / 16, M>(
-      [&](int r, int k) { return Fi[k * M + r0 + r]; },
-      [&](int k, int c) { return B.get(k, c); },
-      y_epi);
-}
-
-// --- The tensor-core forward transform of the i8 measure kernels. One CTA a
-// window of kTcThreads<M> threads, m / 16 warps: warp w owns the 16-row
-// strip 16w..16w+15 of both products.
+// --- The tensor-core forward transform. One CTA a window of kTcThreads<M>
+// threads, m / 16 warps: warp w owns the 16-row strip 16w..16w+15 of both
+// products.
 template <int M>
 constexpr int kTcThreads = 2 * M;
 
@@ -280,6 +154,38 @@ __device__ __forceinline__ void load_window_i8(const int8_t* __restrict__ top, s
   }
 }
 
+// The window of the float path into swizzled bf16 re / im planes at `win`:
+// rows 0..m/2-1 from the block planes `re`, `im` (bf16 [m/2, m]), rows
+// m/2..m-1 from `re + next`, `im + next`, the same channel's next block.
+// The planes are bf16 already, so each 16-byte vector (8 elements) is
+// stored as it is loaded; all of a thread's loads in flight at once.
+template <int M>
+__device__ __forceinline__ void load_window_planes(const __nv_bfloat16* __restrict__ re,
+                                                   const __nv_bfloat16* __restrict__ im,
+                                                   size_t next, __nv_bfloat16* win) {
+  constexpr int kThreads = kTcThreads<M>;
+  constexpr int kVec = M * M / 16;  // vectors of a half-window plane (m*m/2 elements)
+  constexpr int kSteps = 2 * kVec / kThreads;
+  static_assert(2 * kVec % kThreads == 0, "whole rounds only");
+  uint4 vr[kSteps], vi[kSteps];
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int w = threadIdx.x + u * kThreads;
+    const int half = w / kVec;
+    vr[u] = __ldg(reinterpret_cast<const uint4*>(re + half * next) + (w - half * kVec));
+    vi[u] = __ldg(reinterpret_cast<const uint4*>(im + half * next) + (w - half * kVec));
+  }
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    // Vector w holds elements 8w..8w+7 of the window: row 8w / m, columns
+    // from (8w) % m, one 16-byte chunk of each plane.
+    const int e = 8 * (threadIdx.x + u * kThreads);
+    const int o = tc::swz<M>(e / M, e % M);
+    *reinterpret_cast<uint4*>(win + o) = vr[u];
+    *reinterpret_cast<uint4*>(win + M * M + o) = vi[u];
+  }
+}
+
 // Forward four-step of the window at `win` (swizzled bf16 re / im planes of
 // A[n2][n1]) with the table at `tab` (F re / im planes), on the tensor cores;
 // every thread of the CTA calls it after a barrier behind the loads. Warp w:
@@ -319,17 +225,14 @@ __device__ __forceinline__ void forward_tc(const __nv_bfloat16* tab, const __nv_
   }
 }
 
-// --- The tensor-core inverse of the i8 apply kernels: the overlap-save
-// centre rows of the inverse four-step of a permuted spectrum G, as int8
-// wire bytes. It runs transposed, as fourstep.cu's inverse consumer does
-// (F, Fi and T are symmetric): C2^T = Fi G^T, B2^T = bf16(C2^T * conj(T)),
-// y^T = B2^T Fi, so that B2 stays in registers. Warp w owns the strip of
-// rows n1 = 16w..16w+15 of both products; in the second, only the columns
-// n2 in [m/4, 3m/4) that the wire block keeps are computed.
-
-// Bytes of a warp's staging tile: a chunk's kChunk output rows n2 of 32
-// bytes, the (re, im) int8 pairs of the strip's 16 columns n1.
-constexpr int kWireStage = tc::kChunk * 32;
+// --- The tensor-core inverse of the apply kernels: the overlap-save centre
+// rows of the inverse four-step of a permuted spectrum G. It runs
+// transposed, as fourstep.cu's inverse consumer does (F, Fi and T are
+// symmetric): C2^T = Fi G^T, B2^T = bf16(C2^T * conj(T)), y^T = B2^T Fi, so
+// that B2 stays in registers. Warp w owns the strip of rows n1 =
+// 16w..16w+15 of both products; in the second, only the columns n2 in
+// [m/4, 3m/4) that the output keeps are computed. Output row n2 - m/4 of a
+// window holds the samples (re, im) of columns n1.
 
 // First product and twiddle on G (swizzled bf16 re / im planes at `g`,
 // stored [k2][k1]) with the Fi table (planes at `tab`): the strip's rows of
@@ -348,6 +251,28 @@ __device__ __forceinline__ void inverse_tc_first(const __nv_bfloat16* tab,
   }
 }
 
+// Second product on the centre columns of the strip (A fragments from
+// inverse_tc_first, the Fi table at `tab`), a chunk of kChunk columns n2 at
+// a time: epi(n0, yre, yim) gets the chunk from column n0, accumulator
+// (jt, 2 hh + e) of lane (g, t) being (n1 = r0 + g + 8 hh, n2 = n0 + 8 jt +
+// 2t + e).
+template <int M, class Epi>
+__device__ __forceinline__ void inverse_tc_centre(const uint32_t (&cre)[M / 16][4],
+                                                  const uint32_t (&cim)[M / 16][4],
+                                                  const __nv_bfloat16* tab, Epi& epi) {
+  static_assert((M / 2) % tc::kChunk == 0, "whole chunks of centre columns");
+#pragma unroll 1
+  for (int n0 = M / 4; n0 < 3 * M / 4; n0 += tc::kChunk) {
+    float yre[tc::kChunkTiles][4], yim[tc::kChunkTiles][4];
+    tc::strip_product_a<M>(cre, cim, tab, tab + M * M, n0, yre, yim);
+    epi(n0, yre, yim);
+  }
+}
+
+// Bytes of a warp's staging tile: a chunk's kChunk output rows n2 of 32
+// bytes, the (re, im) int8 pairs of the strip's 16 columns n1.
+constexpr int kWireStage = tc::kChunk * 32;
+
 // (re, im) rounded half to even x127 and saturated, as the int8 wire pair
 // (re in the low byte).
 __device__ __forceinline__ uint16_t wire_pair(float re, float im) {
@@ -363,30 +288,24 @@ __device__ __forceinline__ int stage_offset(int row, int col) {
   return row * 32 + (col ^ (((row >> 2) & 1) << 4));
 }
 
-// Second product on the centre columns of the strip (A fragments from
-// inverse_tc_first, the Fi table at `tab`), quantized into the window's
-// wire block out [m/2, 2m]: row n2 - m/4 holds (re, im) of column n1 at
-// bytes 2 n1, 2 n1 + 1, so the strip is 32 contiguous bytes of each row. A
-// chunk of kChunk rows goes through the warp's staging tile `st`
-// (kWireStage bytes) and out as 16-byte stores, two lanes a row.
+// The i8 applies' epilogue of inverse_tc_centre: the strip's chunk
+// quantized into the window's wire block out [m/2, 2m], where row n2 - m/4
+// holds (re, im) of column n1 at bytes 2 n1, 2 n1 + 1, so the strip is 32
+// contiguous bytes of each row. The chunk goes through the warp's staging
+// tile `st` (kWireStage bytes) and out as 16-byte stores, two lanes a row.
 template <int M>
-__device__ __forceinline__ void inverse_tc_centre_wire(const uint32_t (&cre)[M / 16][4],
-                                                       const uint32_t (&cim)[M / 16][4],
-                                                       const __nv_bfloat16* tab,
-                                                       unsigned char* st, int r0,
-                                                       int8_t* __restrict__ out) {
-  constexpr int NT = tc::kChunkTiles;
-  static_assert((M / 2) % tc::kChunk == 0, "whole chunks of centre columns");
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int n0 = M / 4; n0 < 3 * M / 4; n0 += tc::kChunk) {
-    float yre[NT][4], yim[NT][4];
-    tc::strip_product_a<M>(cre, cim, tab, tab + M * M, n0, yre, yim);
-    // Accumulator (jt, 2 hh + e) is (n1 = r0 + g + 8 hh, n2 = n0 + 8 jt +
-    // 2t + e): staged row n2 - n0, bytes 2 (g + 8 hh).
+struct WireChunk {
+  unsigned char* st;
+  int r0;
+  int8_t* out;
+
+  __device__ __forceinline__ void operator()(int n0, const float (&yre)[tc::kChunkTiles][4],
+                                             const float (&yim)[tc::kChunkTiles][4]) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // Accumulator (jt, 2 hh + e): staged row n2 - n0, bytes 2 (g + 8 hh).
 #pragma unroll
-    for (int jt = 0; jt < NT; ++jt)
+    for (int jt = 0; jt < tc::kChunkTiles; ++jt)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
@@ -403,6 +322,34 @@ __device__ __forceinline__ void inverse_tc_centre_wire(const uint32_t (&cre)[M /
     }
     __syncwarp();
   }
-}
+};
+
+// The float apply's epilogue of inverse_tc_centre: the strip's chunk as
+// float32 samples y[(n2 - m/4) m + n1] of the window's planes yre, yim
+// [m/2, m]. One store instruction writes 4 rows n2 x 8 consecutive n1 of a
+// plane, four whole 32-byte sectors, so the streaming stores go straight
+// out with no staging tile.
+template <int M>
+struct FloatChunk {
+  int r0;
+  float* yre;
+  float* yim;
+
+  __device__ __forceinline__ void operator()(int n0, const float (&are)[tc::kChunkTiles][4],
+                                             const float (&aim)[tc::kChunkTiles][4]) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int jt = 0; jt < tc::kChunkTiles; ++jt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = (n0 - M / 4 + 8 * jt + 2 * t + e) * M + r0 + g + 8 * hh;
+          __stcs(yre + o, are[jt][2 * hh + e]);
+          __stcs(yim + o, aim[jt][2 * hh + e]);
+        }
+  }
+};
 
 }  // namespace fused

@@ -15,50 +15,41 @@
 // Plain PyTorch versions: coherent_rtlsdr_tpu_torch/kernels/fused.py
 // (measure_ref_plain, measure_spec_plain, measure_i8_plain, measure_plain).
 //
-// Design of the i8 kernels (measure_ref_kernel, measure_kernel). One CTA a
-// window: (t) for the reference, (n, t) for the channels. On the TPU one
-// grid step carried the reference spectrum R across its channels; CUDA
-// blocks share nothing, so a first kernel, the same transform in reference
-// mode (fused_measure_ref), writes R (float32) and its energy per window,
-// and the channel kernel reads them from L2. What bounds them on the H100:
-// the four real m^3 products of each of the two complex products (33.6
-// MFLOP a window at m = 128, 0.18 ms over 5,355 windows at the bf16
-// tensor-core peak) against 32 kB of window in, 128 kB of R read and 64 kB
-// of D out (handoff) a window. The products run on the tensor cores
-// (forward_tc in fused_common.cuh: mma.sync m16n8k16 bf16 -> f32, a warp a
-// 16-row strip, the first product's twiddled bf16 result kept in registers
-// as the second's A fragments), m / 16 warps a CTA. The epilogue works on
-// the accumulators: D stored as bf16 (STORE_D), G = D conj(R) into shared
-// float32, or R and its energy (reference mode). The phase zoom and the
-// scalars then run on the SIMT units as before. Shared memory, 196,640
-// bytes at m = 128:
+// Design. One CTA a window: (t) for the reference, (n, t) for the channels.
+// On the TPU one grid step carried the reference spectrum R across its
+// channels; CUDA blocks share nothing, so on the i8 path a first kernel,
+// the same transform in reference mode (fused_measure_ref), writes R
+// (float32) and its energy per window, and the channel kernel reads them
+// from L2; the float path gets R from the host as bf16 planes. What bounds
+// them on the H100: the four real m^3 products of each of the two complex
+// products (33.6 MFLOP a window at m = 128, 0.18 ms over 5,355 windows at
+// the bf16 tensor-core peak) against the window in (32 kB of int8, or 64 kB
+// of bf16 planes), R read (128 kB of float32, or 64 kB of bf16 planes, from
+// L2, shared by the N channels of a slot) and, for fused_measure_i8_spec,
+// 64 kB of D out a window. The products run on the tensor cores (forward_tc
+// in fused_common.cuh: mma.sync m16n8k16 bf16 -> f32, a warp a 16-row
+// strip, the first product's twiddled bf16 result kept in registers as the
+// second's A fragments), m / 16 warps a CTA. One body, measure_window,
+// serves every channel kernel, over a window loader (load_window_i8 or
+// load_window_planes), an R reader (float32 pairs or bf16 planes) and an
+// output writer (the i8 five scalars, with D stored or not, or the float
+// four). The epilogue works on the accumulators: D stored as bf16
+// (STORE_D), G = D conj(R) into shared float32, or R and its energy
+// (reference mode). The phase zoom and the scalars then run on the SIMT
+// units. Shared memory, 196,640 bytes at m = 128:
 //   table (2 m^2 bf16):  F as swizzled re / im planes; after the second
 //                        product, the phase zoom's aux scratch
 //   window (m^2 float2): the window as swizzled bf16 re / im planes, then
 //                        (after forward_tc's barrier) G
 // The load has no overlap with the products, and the grid is one CTA a
-// window: a persistent grid with a double-buffered producer (fourstep.cu),
-// TMA or wgmma is later work.
-//
-// The float kernel (measure_planes_kernel) keeps the SIMT forward_fft: one
-// CTA of 256 threads per (t, n), its products on the FMA units, 197,152
-// bytes of shared memory at m = 128:
-//   region A (m*m float2):  the window A, then G = D conj(R)
-//   region C (m*(m+1) bf16x2): C = bf16(B * T), then the band sums
+// window: a persistent grid with a double-buffered producer (fourstep.cu,
+// fused_apply.cu), TMA or wgmma is later work.
 
 #include "fused_common.cuh"
 
 namespace fused {
 
-// Shared memory of the float kernel (SIMT, kThreads threads).
-template <int M>
-struct MeasureSmem {
-  static constexpr size_t kRegionA = sizeof(float2) * M * M;
-  static constexpr size_t kRegionC = SmemBf16Matrix<M>::kBytes;
-  static constexpr size_t kBytes = kRegionA + kRegionC + sizeof(float) * (kThreads / 32);
-};
-
-// Shared memory of the i8 kernels (tensor cores, kTcThreads<M> threads).
+// Shared memory of every measure kernel (kTcThreads<M> threads).
 template <int M>
 struct TcMeasureSmem {
   static constexpr size_t kTable = 2 * sizeof(__nv_bfloat16) * M * M;
@@ -219,17 +210,15 @@ measure_ref_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict_
   if (threadIdx.x == 0) eref[t] = e;
 }
 
-// Channel mode of the i8 path: one CTA per (t, n) = (blockIdx.y, blockIdx.x).
-// STORE_D writes D as bf16 to dre_out/dim_out (the handoff pair); without
-// it the stores compile away and the two pointers are not read.
-template <int M, bool STORE_D>
-__global__ void __launch_bounds__(kTcThreads<M>)
-measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
-               const float2* __restrict__ Tw, const float2* __restrict__ R,
-               const float* __restrict__ eref, float* __restrict__ lag_out,
-               float* __restrict__ zre_out, float* __restrict__ zim_out,
-               float* __restrict__ mag_out, float* __restrict__ papr_out,
-               __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
+// The channel body: one CTA per window `win` of slot t. load(w) fills the
+// window's swizzled planes at w; r_at(r, c) returns R's elements (r, c),
+// (r, c + 1) as float4 (re, im, re, im); out.d(o, d) gets each pair of D
+// elements at element offset o of the window's spectrum, and
+// out.scalars(t, win, z, esig, eg) runs on thread 0 with the window's sums.
+template <int M, class Load, class RAt, class Out>
+__device__ __forceinline__ void measure_window(const float2* __restrict__ F,
+                                               const float2* __restrict__ Tw, int t, size_t win,
+                                               Load load, RAt r_at, Out out) {
   constexpr int W = M * M;
   constexpr int NT = kTcThreads<M>;
   using S = TcMeasureSmem<M>;
@@ -240,26 +229,16 @@ measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
   float2* aux = reinterpret_cast<float2*>(smem);            // over the table, after its use
   float* red = reinterpret_cast<float*>(smem + S::kTable + S::kWindow);
 
-  const int n = blockIdx.x;
-  const int N = gridDim.x;
-  const int t = blockIdx.y;
-  const size_t win = static_cast<size_t>(t) * N + n;
-  const float2* Rt = R + static_cast<size_t>(t) * M * M;
-
   load_table<M>(F, tab);
-  load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, win_s);
+  load(win_s);
   __syncthreads();
 
-  // Window spectrum D: stored as bf16 (STORE_D), and G = D conj(R) kept in
+  // Window spectrum D: handed to the writer, and G = D conj(R) kept in
   // float32.
   float esig = 0.f, eg = 0.f;
   forward_tc<M>(tab, win_s, Tw, [&](int r, int c, float4 d) {
-    const size_t o = win * W + r * M + c;
-    if constexpr (STORE_D) {
-      *reinterpret_cast<__nv_bfloat162*>(dre_out + o) = __floats2bfloat162_rn(d.x, d.z);
-      *reinterpret_cast<__nv_bfloat162*>(dim_out + o) = __floats2bfloat162_rn(d.y, d.w);
-    }
-    const float4 rr = __ldg(reinterpret_cast<const float4*>(Rt + r * M + c));
+    out.d(win * W + r * M + c, d);
+    const float4 rr = r_at(r, c);
     const float g0re = d.x * rr.x + d.y * rr.y, g0im = d.y * rr.x - d.x * rr.y;
     const float g1re = d.z * rr.z + d.w * rr.w, g1im = d.w * rr.z - d.z * rr.w;
     *reinterpret_cast<float4*>(G + r * M + c) = make_float4(g0re, g0im, g1re, g1im);
@@ -271,66 +250,109 @@ measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
   const ZoomResult z = phase_zoom<M, NT>(G, aux, red);
   esig = block_sum<NT>(esig, red);
   eg = block_sum<NT>(eg, red);
-
-  if (threadIdx.x == 0) {
-    const float zabs = sqrtf(z.zre * z.zre + z.zim * z.zim);
-    const float denom = sqrtf(esig * eref[t]);
-    lag_out[win] = z.lag;
-    zre_out[win] = z.zre;
-    zim_out[win] = z.zim;
-    mag_out[win] = zabs / fmaxf(denom, 1e-30f);
-    papr_out[win] = zabs * zabs / fmaxf(eg, 1e-30f);
-  }
+  if (threadIdx.x == 0) out.scalars(t, win, z, esig, eg);
 }
 
-// The float path: block planes pre/pim bf16 [T, N, m/2, m] and reference
-// spectra rre/rim bf16 [T-1, m, m]; one CTA per (t, n). Writes the lag,
-// |z|, sum |D|^2 and sum |G|^2 of each window.
+// The i8 channel kernels' outputs: lag, zre, zim, mag, papr float [T-1, N]
+// against the reference energies eref, and with STORE_D the window
+// spectrum D as bf16 (the handoff pair); without it the stores compile away
+// and the two pointers are not read.
+template <bool STORE_D>
+struct I8Out {
+  const float* eref;
+  float *lag, *zre, *zim, *mag, *papr;
+  __nv_bfloat16 *dre, *dim;
+
+  __device__ __forceinline__ void d(size_t o, float4 v) const {
+    if constexpr (STORE_D) {
+      *reinterpret_cast<__nv_bfloat162*>(dre + o) = __floats2bfloat162_rn(v.x, v.z);
+      *reinterpret_cast<__nv_bfloat162*>(dim + o) = __floats2bfloat162_rn(v.y, v.w);
+    }
+  }
+
+  __device__ __forceinline__ void scalars(int t, size_t win, ZoomResult z, float esig,
+                                          float eg) const {
+    const float zabs = sqrtf(z.zre * z.zre + z.zim * z.zim);
+    const float denom = sqrtf(esig * eref[t]);
+    lag[win] = z.lag;
+    zre[win] = z.zre;
+    zim[win] = z.zim;
+    mag[win] = zabs / fmaxf(denom, 1e-30f);
+    papr[win] = zabs * zabs / fmaxf(eg, 1e-30f);
+  }
+};
+
+// The float kernel's outputs: lag, |z|, sum |D|^2 and sum |G|^2 float
+// [T-1, N]; no spectrum stored.
+struct PlanesOut {
+  float *lag, *zabs, *esig, *eg;
+
+  __device__ __forceinline__ void d(size_t, float4) const {}
+
+  __device__ __forceinline__ void scalars(int, size_t win, ZoomResult z, float e_sig,
+                                          float e_g) const {
+    lag[win] = z.lag;
+    zabs[win] = sqrtf(z.zre * z.zre + z.zim * z.zim);
+    esig[win] = e_sig;
+    eg[win] = e_g;
+  }
+};
+
+// Channel mode of the i8 path: int8 blocks raw [T, N, m/2, 2m] against R
+// float2 [T-1, m, m] and eref from measure_ref_kernel. One CTA per (t, n) =
+// (blockIdx.y, blockIdx.x).
+template <int M, bool STORE_D>
+__global__ void __launch_bounds__(kTcThreads<M>)
+measure_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
+               const float2* __restrict__ Tw, const float2* __restrict__ R,
+               const float* __restrict__ eref, float* __restrict__ lag_out,
+               float* __restrict__ zre_out, float* __restrict__ zim_out,
+               float* __restrict__ mag_out, float* __restrict__ papr_out,
+               __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
+  constexpr int W = M * M;
+  const int n = blockIdx.x;
+  const int N = gridDim.x;
+  const int t = blockIdx.y;
+  const size_t win = static_cast<size_t>(t) * N + n;
+  const float2* Rt = R + static_cast<size_t>(t) * W;
+  measure_window<M>(
+      F, Tw, t, win,
+      [&](__nv_bfloat16* w) { load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, w); },
+      [&](int r, int c) { return __ldg(reinterpret_cast<const float4*>(Rt + r * M + c)); },
+      I8Out<STORE_D>{eref, lag_out, zre_out, zim_out, mag_out, papr_out, dre_out, dim_out});
+}
+
+// The float path: block planes pre/pim bf16 [T, N, m/2, m] against the
+// reference spectra rre/rim bf16 [T-1, m, m]. One CTA per (t, n) =
+// (blockIdx.y, blockIdx.x).
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads<M>)
 measure_planes_kernel(const __nv_bfloat16* __restrict__ pre, const __nv_bfloat16* __restrict__ pim,
                       const __nv_bfloat16* __restrict__ rre, const __nv_bfloat16* __restrict__ rim,
                       const float2* __restrict__ F, const float2* __restrict__ Tw,
                       float* __restrict__ lag_out, float* __restrict__ zabs_out,
                       float* __restrict__ esig_out, float* __restrict__ eg_out) {
   constexpr int W = M * M;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* G = reinterpret_cast<float2*>(smem);  // region A: A, then G
-  SmemBf16Matrix<M> C{reinterpret_cast<__nv_bfloat162*>(smem + MeasureSmem<M>::kRegionA)};
-  float2* aux = reinterpret_cast<float2*>(smem + MeasureSmem<M>::kRegionA);  // region C, reused
-  float* red = reinterpret_cast<float*>(smem + MeasureSmem<M>::kRegionA + MeasureSmem<M>::kRegionC);
-
   const int n = blockIdx.x;
   const int N = gridDim.x;
   const int t = blockIdx.y;
   const size_t win = static_cast<size_t>(t) * N + n;
   const size_t top = win * (W / 2);  // block t of channel n
-  const __nv_bfloat16* Rre = rre + static_cast<size_t>(t) * W;
-  const __nv_bfloat16* Rim = rim + static_cast<size_t>(t) * W;
-
-  float esig = 0.f, eg = 0.f;
-  forward_fft<M>(
-      [&](float2* a) { load_planes<M>(pre + top, pim + top, static_cast<size_t>(N) * (W / 2), a); },
-      F, Tw, G, C, [&](int r, int c, float dre, float dim) {
-        const float rr = __bfloat162float(Rre[r * M + c]);
-        const float ri = __bfloat162float(Rim[r * M + c]);
-        const float gre = dre * rr + dim * ri;
-        const float gim = dim * rr - dre * ri;
-        G[r * M + c] = make_float2(gre, gim);
-        esig += dre * dre + dim * dim;
-        eg += gre * gre + gim * gim;
-      });
-
-  const ZoomResult z = phase_zoom<M, kThreads>(G, aux, red);
-  esig = block_sum<kThreads>(esig, red);
-  eg = block_sum<kThreads>(eg, red);
-
-  if (threadIdx.x == 0) {
-    lag_out[win] = z.lag;
-    zabs_out[win] = sqrtf(z.zre * z.zre + z.zim * z.zim);
-    esig_out[win] = esig;
-    eg_out[win] = eg;
-  }
+  const unsigned int* Rre = reinterpret_cast<const unsigned int*>(rre + static_cast<size_t>(t) * W);
+  const unsigned int* Rim = reinterpret_cast<const unsigned int*>(rim + static_cast<size_t>(t) * W);
+  measure_window<M>(
+      F, Tw, t, win,
+      [&](__nv_bfloat16* w) {
+        load_window_planes<M>(pre + top, pim + top, static_cast<size_t>(N) * (W / 2), w);
+      },
+      [&](int r, int c) {
+        // Elements (r, c), (r, c + 1) of each plane, one bf16 pair a load
+        // (c even), widened exactly.
+        const float2 re = unpack_bf16(__ldg(Rre + (r * M + c) / 2));
+        const float2 im = unpack_bf16(__ldg(Rim + (r * M + c) / 2));
+        return make_float4(re.x, im.x, re.y, im.y);
+      },
+      PlanesOut{lag_out, zabs_out, esig_out, eg_out});
 }
 
 template <int M>
@@ -366,10 +388,11 @@ template <int M>
 int launch_planes(const void* pre, const void* pim, const void* rre, const void* rim,
                   const void* F, const void* Tw, void* lag, void* zabs, void* esig, void* eg,
                   int T1, int N, void* stream) {
-  const int smem = static_cast<int>(MeasureSmem<M>::kBytes);
+  const int smem = static_cast<int>(TcMeasureSmem<M>::kBytes);
   const cudaError_t err = set_smem(measure_planes_kernel<M>, smem);
   if (err != cudaSuccess) return err;
-  measure_planes_kernel<M><<<dim3(N, T1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  measure_planes_kernel<M>
+      <<<dim3(N, T1), kTcThreads<M>, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
       static_cast<const __nv_bfloat16*>(rre), static_cast<const __nv_bfloat16*>(rim),
       static_cast<const float2*>(F), static_cast<const float2*>(Tw), static_cast<float*>(lag),

@@ -1,5 +1,5 @@
-// Tensor-core helpers of the hand-written kernels (fourstep.cu, and the i8
-// measure and apply kernels of fused_measure.cu / fused_apply.cu through
+// Tensor-core helpers of the hand-written kernels (fourstep.cu, and every
+// measure and apply kernel of fused_measure.cu / fused_apply.cu through
 // fused_common.cuh): bf16 matrices in swizzled shared memory, ldmatrix
 // fragment loads, the mma.sync m16n8k16 bf16 x bf16 -> f32 product, the
 // twiddle, the complex products of a warp's 16-row strip, named barriers

@@ -90,17 +90,20 @@ def build() -> dict:
     return report
 
 
-# The i8 measure kernels on the tensor cores, by their ptxas_usage names:
-# {reference, channels with and without the D store} x m.
+# The measure kernels, all on the tensor cores, by their ptxas_usage names:
+# {reference, i8 channels with and without the D store, float channels} x m.
 TC_MEASURE_KERNELS = tuple(
     [f"fused::measure_ref_kernel<{m}>" for m in SUPPORTED_M]
-    + [f"fused::measure_kernel<{m}, {d}>" for m in SUPPORTED_M for d in (1, 0)])
+    + [f"fused::measure_kernel<{m}, {d}>" for m in SUPPORTED_M for d in (1, 0)]
+    + [f"fused::measure_planes_kernel<{m}>" for m in SUPPORTED_M])
 
-# The i8 apply kernels on the tensor cores, by their ptxas_usage names: {the
-# spectrum handoff's persistent kernel, the recompute kernel} x m.
+# The apply kernels, all on the tensor cores, by their ptxas_usage names:
+# {the spectrum handoff's persistent kernel, the i8 recompute kernel, the
+# float kernel} x m.
 TC_APPLY_KERNELS = tuple(
     [f"fused::apply_spec_kernel<{m}>" for m in SUPPORTED_M]
-    + [f"fused::apply_i8_kernel<{m}>" for m in SUPPORTED_M])
+    + [f"fused::apply_i8_kernel<{m}>" for m in SUPPORTED_M]
+    + [f"fused::apply_planes_kernel<{m}>" for m in SUPPORTED_M])
 
 
 def _kernel_name(mangled: str) -> str:

@@ -131,10 +131,10 @@ def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_d
 
 @pytest.mark.cuda
 def test_measure_kernels_use_no_stack_on_card(cuda_device):
-    """ptxas: the ten tensor-core i8 instantiations, the six measure ones
-    ({reference, channels with and without D} x m in {64, 128}) and the four
-    apply ones ({handoff, recompute} x m), use no stack frame and spill
-    nothing."""
+    """ptxas: the fourteen tensor-core instantiations, the eight measure ones
+    ({reference, i8 channels with and without D, float channels} x m in
+    {64, 128}) and the six apply ones ({i8 handoff, i8 recompute, float} x
+    m), use no stack frame and spill nothing."""
     report = fused_cuda.build()
     for src, names in (("fused_measure.cu", fused_cuda.TC_MEASURE_KERNELS),
                        ("fused_apply.cu", fused_cuda.TC_APPLY_KERNELS)):
@@ -194,9 +194,9 @@ def test_plain_versions_restore_tf32(cuda_device):
 def _planes(raw, ref_raw, m):
     """Float-path inputs from signed blocks: bf16 block planes [T, N, m/2, m]
     and the bf16 reference window spectra [T-1, m, m] (plain four-step)."""
-    L = m * m // 2
-    sig = i8_iq_to_c64(raw.reshape(T, N, L, 2)).reshape(T, N, m // 2, m)
-    ref = i8_iq_to_c64(ref_raw.reshape(T, L, 2))
+    t, n, L = raw.shape[0], raw.shape[1], m * m // 2
+    sig = i8_iq_to_c64(raw.reshape(t, n, L, 2)).reshape(t, n, m // 2, m)
+    ref = i8_iq_to_c64(ref_raw.reshape(t, L, 2))
     R = FFT4StepKernel(m * m, raw.device).fft_plain(torch.cat([ref[:-1], ref[1:]], dim=-1))
     bf = lambda x: x.to(torch.bfloat16)
     return bf(sig.real), bf(sig.imag), bf(R.real), bf(R.imag)
@@ -223,36 +223,69 @@ def test_fourstep_matches_plain_on_card(inverse, cuda_device):
     assert ((got - lib).abs().max() / lib.abs().max()).item() < 3e-2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "correlated"])
-def test_float_kernels_match_plain_on_card(kind, cuda_device):
-    m = 64
-    k = FusedPipelineKernels(m * m, cuda_device)
-    pre, pim, rre, rim = _planes(*_blocks(kind, m, cuda_device), m)
+def _hold_float_pair(k, planes, adv, kind):
+    """The float measure and apply kernels against their plain versions on
+    the same planes and advances, by the i8 measure bars and the wire bars
+    in float units."""
+    pre, pim, rre, rim = planes
+    t1, n = adv.shape
+    m = k.m
+    k.reset_counts()
     got = k.measure(pre, pim, rre, rim)
     want = k.measure_plain(pre, pim, rre, rim)
+    yk = k.apply(pre, pim, adv)
+    yp = k.apply_plain(pre, pim, adv)
     torch.cuda.synchronize()
-    assert (k.measure_launches, k.measure_plain_runs) == (1, 1)
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(
+        measure_launches=1, measure_plain_runs=1, apply_launches=1, apply_plain_runs=1)
     eref = (rre.float() ** 2 + rim.float() ** 2).sum((-2, -1))[:, None]
     mag = lambda out: out[1] / torch.sqrt(out[2] * eref)
     used = mag(want) >= MIN_CORR_MAG
     assert torch.equal(mag(got) >= MIN_CORR_MAG, used)
     assert used.all() if kind == "correlated" else not used.any()
     for x in got:
-        assert torch.isfinite(x).all()
+        assert x.shape == (t1, n) and torch.isfinite(x).all()
     assert ((got[0] - want[0]).abs()[used] <= 1e-3).all()
     for a, b in zip(got[1:], want[1:]):
         assert ((a - b).abs() <= 1e-3 * b.abs())[used].all()
-
-    adv = torch.linspace(-40, 40, (T - 1) * N, device=cuda_device).reshape(T - 1, N)
-    yk = k.apply(pre, pim, adv)
-    yp = k.apply_plain(pre, pim, adv)
-    torch.cuda.synchronize()
-    assert (k.apply_launches, k.apply_plain_runs) == (1, 1)
     for a, b in zip(yk, yp):
-        assert a.shape == (T - 1, N, m * m // 2)
+        assert a.dtype == torch.float32 and a.shape == (t1, n, m * m // 2)
+        assert b.abs().max().item() >= 8 / 127   # the comparison sees real samples
         d = (a - b).abs()
         assert d.max().item() <= 2 / 127 and (d > 1 / 127).float().mean().item() < 1e-3
+
+
+def _advances(t1, n, seed, dev):
+    """Advances in [-40, 40) with a large negative and a fractional one
+    among the windows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    adv = (torch.rand((t1, n), generator=g, device=dev) - 0.5) * 80.0
+    adv.view(-1)[0] = -1500.25
+    adv.view(-1)[-1] = 1023.5
+    return adv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("kind", ["random", "correlated"])
+def test_float_kernels_match_plain_on_card(kind, m, cuda_device):
+    k = FusedPipelineKernels(m * m, cuda_device)
+    planes = _planes(*_blocks(kind, m, cuda_device), m)
+    _hold_float_pair(k, planes, _advances(T - 1, N, m, cuda_device), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
+def test_float_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
+    """fused_measure_planes and fused_apply_planes against their plain
+    versions on correlated planes: one window of 21 channels (a streaming
+    step), a single channel, and 26 x 21 windows, no whole wave of CTAs on
+    132 SMs; among the advances a large negative and a fractional one."""
+    t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
+    k = FusedPipelineKernels(m * m, cuda_device)
+    planes = _planes(*_blocks("correlated", m, cuda_device, t, n), m)
+    _hold_float_pair(k, planes, _advances(t - 1, n, m + t, cuda_device), "correlated")
 
 
 @pytest.mark.cuda

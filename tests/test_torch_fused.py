@@ -259,9 +259,11 @@ def test_ptxas_usage_reads_each_entry_kernel():
                                            spill_loads=0),
         "probe_entry": dict(registers=10, stack=0, spill_stores=0, spill_loads=0),
     }
-    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 6
-    assert {"fused::measure_kernel<128, 1>", "fused::measure_ref_kernel<64>"} < set(
+    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 8
+    assert {"fused::measure_kernel<128, 1>", "fused::measure_ref_kernel<64>",
+            "fused::measure_planes_kernel<64>", "fused::measure_planes_kernel<128>"} < set(
         fused_cuda.TC_MEASURE_KERNELS)
-    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 4
-    assert {"fused::apply_spec_kernel<128>", "fused::apply_i8_kernel<64>"} < set(
+    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 6
+    assert {"fused::apply_spec_kernel<128>", "fused::apply_i8_kernel<64>",
+            "fused::apply_planes_kernel<64>", "fused::apply_planes_kernel<128>"} < set(
         fused_cuda.TC_APPLY_KERNELS)
