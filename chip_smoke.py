@@ -56,6 +56,27 @@ probe with its block copy:
      to its input and timed against its plain version and ``x.clone()``,
      over runs of launches.
 
+The streaming server (``io/server.py``), with an in-process recording
+publisher (frames serialized in the wire format) and a scripted control
+socket:
+
+ 16. a capture rendered on the card by ``synth_stream_slab`` and served by
+     ``FileSource`` from host memory; the fused server at scan depth 1 and
+     32: samples/s (frames x N x L over each timed window's wall clock,
+     median of 3, against 43.0e6), one more window with the loop's host
+     time split by part, the idle share of one depth-32 run under
+     torch.profiler, 21 / 21 synced, contiguous ref seqnums, the last 16
+     frames' contents (lag 0, corr >= 0.99, |phase| < 1 deg against
+     channel 0), one launch of each fused kernel a block and no plain run,
+     and the first frames bit-equal to ``make_packed_scan_runner``'s on the
+     same bytes; console commands mid-run (status, phase, request rd / re,
+     fcenter, an fs change that forces a resync) and padded hot-plug
+     (max_channels = 24, add then del, no runner rebuilt) on a synthetic
+     stream rendered on the card; a checkpoint restored into a new server
+     that resumes synced with its ref seqnums continuing; the generic
+     server (``pallas``, 64 blocks at scan depth 8, 2 + 2 four-step
+     launches a block); Farrow on the card against the CPU.
+
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the ptxas report of every kernel
 (registers, stack, spills; the fourteen tensor-core instantiations of the
@@ -523,6 +544,423 @@ def wire_phase_deg(wire, ref_raw):
     return torch.rad2deg(torch.angle(z))
 
 
+# Phase 16: the streaming server (io/server.py) at N = 21, L = 8192.
+SERVER_WARM = 64              # blocks before the timed windows
+SERVER_WINDOW = {1: 128, 32: 256}   # blocks a timed window, by scan depth
+SERVER_WINDOWS = 3
+SERVER_SLAB = 254             # blocks a rendered slab (a 256-block window)
+REALTIME_SAMPLES_S = N_CH * 2.048e6   # the reference's operating point, 43.0e6
+FRAME_CORR_MIN = 0.99         # each channel against channel 0 (the verify criteria)
+FRAME_PHASE_MAX_DEG = 1.0
+FARROW_ATOL = 1e-5            # Farrow on the card against the CPU
+
+
+class RecordingPublisher:
+    """The server's publisher in this script (the card's machine has no
+    pyzmq): it serializes every frame and its phases in the wire format,
+    as the ZMQ publisher does before its send, and keeps the first
+    ``keep_first`` frames, the last 16 and every ref seqnum."""
+
+    def __init__(self, keep_first=0):
+        import collections
+
+        self.keep_first = keep_first
+        self.first, self.last = [], collections.deque(maxlen=16)
+        self.ref_seqs = []
+
+    def publish(self, iq_i8, seqnums, phases=None):
+        from coherent_rtlsdr_tpu_torch.io.wire import pack_debug, pack_frame
+
+        buf = pack_frame(len(self.ref_seqs), seqnums, iq_i8)
+        if phases is not None:
+            pack_debug(phases)
+        self.ref_seqs.append(int(seqnums[0]))
+        if len(self.first) < self.keep_first:
+            self.first.append(buf)
+        self.last.append(buf)
+        return len(buf)
+
+
+class QueueControl:
+    """A scripted control socket: queued commands are handled at the loop's
+    next poll (once a batch), and their replies kept."""
+
+    def __init__(self):
+        self.queue, self.replies = [], {}
+
+    def poll(self, handler, timeout_ms=0):
+        n = 0
+        while self.queue:
+            cmd = self.queue.pop(0)
+            self.replies[cmd] = handler(cmd)
+            n += 1
+        return n
+
+
+def render_capture(n_blocks, dev, seed=11):
+    """A continuous synthetic capture rendered on the card slab by slab
+    (``synth_stream_slab``: max delay 40, SNR 30 dB, ppm 0) and kept in
+    host memory, its seqnums counting from 1: (Capture, truth)."""
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.io.streamio import Capture
+    from coherent_rtlsdr_tpu_torch.signal import make_truth, synth_stream_slab
+
+    truth = make_truth(N_CH, seed=seed, max_delay=40.0, snr_db=30.0)
+    n_slabs = -(-n_blocks // SERVER_SLAB)
+    T = n_slabs * SERVER_SLAB
+    sig = np.empty((T, N_CH, L, 2), np.uint8)
+    ref = np.empty((T, L, 2), np.uint8)
+    for i in range(n_slabs):
+        s, r = synth_stream_slab(seed, truth, i, SERVER_SLAB, L, device=dev)
+        sig[i * SERVER_SLAB:(i + 1) * SERVER_SLAB] = s.cpu().numpy()
+        ref[i * SERVER_SLAB:(i + 1) * SERVER_SLAB] = r.cpu().numpy()
+    seqnums = np.tile(np.arange(1, T + 1, dtype=np.uint32)[:, None], (1, N_CH))
+    return Capture(sig_u8=sig, ref_u8=ref, seqnums=seqnums, fs=2.048e6, fcenter=1024e6), truth
+
+
+def sub_capture(cap, start, stop, restart_seqnums=False):
+    """Blocks [start, stop) of a capture (a restarted capture counts its
+    seqnums from 1 again)."""
+    from coherent_rtlsdr_tpu_torch.io.streamio import Capture
+
+    seq = cap.seqnums[: stop - start] if restart_seqnums else cap.seqnums[start:stop]
+    return Capture(sig_u8=cap.sig_u8[start:stop], ref_u8=cap.ref_u8[start:stop], seqnums=seq,
+                   fs=cap.fs, fcenter=cap.fcenter)
+
+
+def check_frames(bufs, n, where):
+    """Every frame is (n + 1) x L int8 IQ, and each channel against channel
+    0 peaks at lag 0 with corr >= FRAME_CORR_MIN and |phase| <
+    FRAME_PHASE_MAX_DEG. Returns the worst corr and phase."""
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.io.wire import unpack_frame
+
+    corr_min, phase_max = 1.0, 0.0
+    for buf in bufs:
+        f = unpack_frame(buf)
+        if not (f.iq.shape == (n + 1, L, 2) and f.iq.dtype == np.int8):
+            raise AssertionError(f"{where}: frame of shape {f.iq.shape}, {f.iq.dtype}")
+        x = f.iq[..., 0].astype(np.float64) + 1j * f.iq[..., 1]
+        X = np.fft.fft(x, axis=-1)
+        lag = np.abs(np.fft.ifft(X[1:] * X[0].conj(), axis=-1)).argmax(-1)
+        z = (x[1:] * x[0].conj()).sum(-1)
+        corr = np.abs(z) / (np.linalg.norm(x[1:], axis=-1) * np.linalg.norm(x[0]))
+        phase = np.abs(np.degrees(np.angle(z)))
+        if not ((lag == 0).all() and (corr >= FRAME_CORR_MIN).all()
+                and (phase < FRAME_PHASE_MAX_DEG).all()):
+            raise AssertionError(f"{where}: lags {lag}, corr min {corr.min()}, "
+                                 f"|phase| max {phase.max()} deg")
+        corr_min, phase_max = min(corr_min, corr.min()), max(phase_max, phase.max())
+    return dict(frames_checked=len(bufs), corr_min=float(corr_min),
+                phase_max_deg=float(phase_max))
+
+
+def synced_line(srv, n, where):
+    line = srv.status().splitlines()[0]
+    if line != f"{n} / {n} synchronized":
+        raise AssertionError(f"{where}: status says '{line}'")
+    return line
+
+
+def contiguous(seqs, first, where):
+    if seqs != list(range(first, first + len(seqs))):
+        raise AssertionError(f"{where}: ref seqnums not contiguous from {first}: "
+                             f"{seqs[:4]} ... {seqs[-4:]}")
+
+
+def runner_frames(cfg, cap, n_blocks, dev):
+    """The packed scan runner on the capture's first blocks from the initial
+    state, K = 32 a call: the frames as [T, N + 1, L, 2] int8 (ref first)."""
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.pipeline import init_state, make_packed_scan_runner
+    from coherent_rtlsdr_tpu_torch.pipeline.state import pack_state
+
+    run = make_packed_scan_runner(cfg)
+    pstate = pack_state(init_state(cfg, dev))
+    gate = torch.tensor(True, device=dev)
+    out = []
+    for c in range(0, n_blocks, K_STREAM):
+        blk = slice(c, c + K_STREAM)
+        sigs = torch.from_numpy(cap.sig_u8[blk]).to(dev).reshape(-1, N_CH, 2 * L)
+        refs = torch.from_numpy(cap.ref_u8[blk]).to(dev).reshape(-1, 2 * L)
+        seqs = torch.from_numpy(cap.seqnums[blk].astype(np.int64)).to(dev)
+        pstate, (wire, wire_ref), _ = run(pstate, sigs, refs, gate, seqs)
+        out.append(torch.cat([wire_ref.reshape(-1, 1, L, 2), wire.reshape(-1, N_CH, L, 2)],
+                             dim=1).cpu().numpy())
+    return np.concatenate(out)
+
+
+def bit_equal(bufs, want, where):
+    from coherent_rtlsdr_tpu_torch.io.wire import unpack_frame
+
+    for t, buf in enumerate(bufs):
+        if not (unpack_frame(buf).iq == want[t]).all():
+            raise AssertionError(f"{where}: frame {t} differs from the packed runner's")
+    return len(bufs)
+
+
+def timed_server(cfg, cap, scan_depth, k, dev):
+    """A server at ``scan_depth`` on the capture from its start: a warm-up
+    run, then SERVER_WINDOWS timed runs. Returns (server, publisher, wall
+    seconds and frames of each window, launch counts of all its runs)."""
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.signal.sources import FileSource
+
+    pub = RecordingPublisher(keep_first=SERVER_WARM)
+    srv = CoherentServer(cfg, FileSource(cap), publisher=pub, control=QueueControl(),
+                         scan_depth=scan_depth, device=dev)
+    k.reset_counts()
+    if srv.run(max_blocks=SERVER_WARM) != SERVER_WARM:
+        raise AssertionError(f"server K={scan_depth}: warm-up published too few frames")
+    windows = []
+    for _ in range(SERVER_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = srv.run(max_blocks=SERVER_WINDOW[scan_depth])
+        windows.append((time.perf_counter() - t0, n))
+    return srv, pub, windows
+
+
+def host_breakdown(srv, n_blocks):
+    """One more run of ``srv`` with its loop's parts timed on the host
+    clock, in ms a block. Each part is the host time of one function of
+    ``io/server.py`` (or of the source), wrapped on this instance for the
+    run, so a change to one of these functions changes its part:
+
+      source          ``srv.source.next_block``
+      stage           ``CoherentServer._stage`` (pad + pinned upload)
+      dispatch        ``srv._step`` and ``srv._scan`` (the runner's launches)
+      main_rest       the run's wall clock less the three above (queue
+                      waits for the worker, control polls, the loop)
+      worker_fetch    ``CoherentServer._fetch`` (its wait for the device
+                      included)
+      worker_publish  ``CoherentServer._publish_batch`` less its fetch
+                      (frame assembly and publish)
+    """
+    import collections
+
+    spent = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return run
+
+    parts = [("source", srv.source, "next_block"), ("stage", srv, "_stage"),
+             ("dispatch", srv, "_step"), ("fetch", srv, "_fetch"),
+             ("publish", srv, "_publish_batch")]
+    if srv._scan is not None:
+        parts.append(("dispatch", srv, "_scan"))
+    # (object, attribute, the instance's own value or None for a method of
+    # the class, which deleting the wrapper brings back)
+    saved = [(obj, attr, vars(obj).get(attr)) for _, obj, attr in parts]
+    for name, obj, attr in parts:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = srv.run(max_blocks=n_blocks)
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, attr, own in saved:
+            if own is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
+    ms = lambda sec: sec * 1e3 / n
+    main = spent["source"] + spent["stage"] + spent["dispatch"]
+    return dict(blocks=n, wall_ms_per_block=ms(wall), source=ms(spent["source"]),
+                stage=ms(spent["stage"]), dispatch=ms(spent["dispatch"]),
+                main_rest=ms(wall - main), worker_fetch=ms(spent["fetch"]),
+                worker_publish=ms(spent["publish"] - spent["fetch"]))
+
+
+def phase_server(dev, smi, k, fk):
+    """Phase 16: the streaming server on the fused path, then its console,
+    hot-plug and checkpoint, the generic path, and Farrow on the card.
+    Returns (the phase's record, fused kernel launches, four-step
+    launches)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.ops.delay import farrow_fractional_delay
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.signal import make_truth
+    from coherent_rtlsdr_tpu_torch.signal.sources import FileSource, SyntheticStreamSource
+
+    cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                         lag_method="phase_zoom")
+    per_window = N_CH * L
+    need = 2 * SERVER_WARM + (SERVER_WINDOWS + 1) * SERVER_WINDOW[32] + 8
+    t0 = time.perf_counter()
+    cap, truth = render_capture(need, dev)
+    render_s = time.perf_counter() - t0
+    want = runner_frames(cfg, cap, SERVER_WARM, dev)
+    launches = dict.fromkeys(k.counts(), 0)
+    out = dict(phase="server", card=smi, N=N_CH, L=L, fft_impl="fused",
+               capture_blocks=cap.n_blocks, render_s=render_s)
+
+    def add(counts):
+        for name, v in counts.items():
+            launches[name] += v
+
+    # Scan depth 1 and 32: rates, sync, contiguous ref seqnums, frame
+    # contents, launch counts, and the frames against the bare runner.
+    for depth in (1, 32):
+        where = f"server K={depth}"
+        srv, pub, windows = timed_server(cfg, cap, depth, k, dev)
+        rates = [n * per_window / s for s, n in windows]
+        rec = dict(window_blocks=SERVER_WINDOW[depth], window_s=[s for s, _ in windows],
+                   samples_per_s=rates, samples_per_s_median=statistics.median(rates),
+                   realtime=statistics.median(rates) >= REALTIME_SAMPLES_S,
+                   status=synced_line(srv, N_CH, where))
+        rec["host_ms_per_block"] = host_breakdown(srv, SERVER_WINDOW[depth])
+        served = SERVER_WARM + sum(n for _, n in windows) + SERVER_WINDOW[depth]
+        if depth == 32:
+            # One more run under the profiler: the loop's idle share.
+            prof = device_profile(lambda: srv.run(max_blocks=SERVER_WARM))
+            served += SERVER_WARM
+            rec["profile"] = {key: prof[key] for key in
+                              ("wall_ms", "device_busy_ms", "idle_share", "top_ms",
+                               "fused_kernel_ms")}
+            checkpoint_src = srv
+        counts = k.counts()
+        launched_only_kernels(counts, served, where)
+        add(counts)
+        contiguous(pub.ref_seqs, 1, where)
+        rec.update(blocks_served=served, launches=counts,
+                   frames=check_frames(pub.last, N_CH, where),
+                   bit_equal_to_runner=bit_equal(pub.first, want, where))
+        out[f"scan_depth_{depth}"] = rec
+
+    # Console commands mid-run and padded hot-plug (max_channels = 24) on a
+    # synthetic stream rendered on the card.
+    ctl = QueueControl()
+    pub = RecordingPublisher()
+    src = SyntheticStreamSource(make_truth(N_CH, seed=12, max_delay=40.0, snr_db=30.0),
+                                block_len=L, slab_blocks=62, seed=12, device=dev)
+    srv = CoherentServer(cfg, src, publisher=pub, control=ctl, scan_depth=8,
+                         max_channels=24, device=dev)
+    k.reset_counts()
+
+    def run_with(cmds, blocks):
+        ctl.queue += cmds
+        if srv.run(max_blocks=blocks) != blocks:
+            raise AssertionError(f"console server: published too few frames after {cmds}")
+
+    run_with([], SERVER_WARM)
+    first = synced_line(srv, N_CH, "console warm-up")
+    run_with(["status", "phase", "request rd"], 16)
+    gate_off = srv.refnoise_enabled is False and not src.refnoise_enabled
+    run_with(["request re", "fcenter 868000000"], 16)
+    builds = srv.n_runner_builds
+    run_with(["fs 1024000"], 8)
+    fs_ok = (srv.cfg.fs == 1024000.0 and srv._resync_requested
+             and srv.n_runner_builds == builds + 1)
+    run_with([], 16)
+    after_fs = synced_line(srv, N_CH, "after the fs change")
+    builds = srv.n_runner_builds
+    run_with(["add NEWCH"], 8)
+    run_with([], 48)
+    after_add = synced_line(srv, N_CH + 1, "after add")
+    frames_add = check_frames([pub.last[-1]], N_CH + 1, "after add")
+    run_with(["del SYN 1"], 8)
+    run_with([], 16)
+    after_del = synced_line(srv, N_CH, "after del")
+    frames_del = check_frames([pub.last[-1]], N_CH, "after del")
+    r = ctl.replies
+    console_ok = (r["status"].startswith(first) and len(r["phase"].split("\t")) == N_CH
+                  and r["request rd"] == "disable refnoise" and gate_off
+                  and r["request re"] == "enable refnoise" and srv.refnoise_enabled
+                  and r["fcenter 868000000"] == "fcenter set to 868000000"
+                  and srv.fcenter == 868000000.0 and r["fs 1024000"] == "fs set to 1024000"
+                  and fs_ok and r["add NEWCH"] == f"added 'NEWCH' as channel {N_CH + 1}"
+                  and r["del SYN 1"] == "deleted 'SYN 1'"
+                  and srv.n_runner_builds == builds and srv.n_active == N_CH)
+    if not console_ok:
+        raise AssertionError(f"console: replies {r}, fs_ok {fs_ok}, gate_off {gate_off}, "
+                             f"runner builds {srv.n_runner_builds} (was {builds})")
+    counts = k.counts()
+    launched_only_kernels(counts, len(pub.ref_seqs), "console server")
+    add(counts)
+    contiguous(pub.ref_seqs, 1, "console server")
+    out["console"] = dict(replies=r, blocks_served=len(pub.ref_seqs), launches=counts,
+                          status=[first, after_fs, after_add, after_del],
+                          frames_after_add=frames_add, frames_after_del=frames_del,
+                          runner_builds=srv.n_runner_builds, max_channels=24)
+
+    # Checkpoint: save the depth-32 server's calibration, restore it into a
+    # new server on the next blocks of the capture (restarted: seqnums from
+    # 1): synced from the start, no re-sync, ref seqnums continuing.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calibration.npz")
+        checkpoint_src.save_state(path)
+        saved = checkpoint_src.state
+        pub = RecordingPublisher()
+        start = 2 * SERVER_WARM + (SERVER_WINDOWS + 1) * SERVER_WINDOW[32]
+        restored = CoherentServer(cfg, FileSource(sub_capture(cap, start, start + 8, True)),
+                                  publisher=pub, control=QueueControl(), state_path=path,
+                                  device=dev)
+        st = restored.state
+        k.reset_counts()
+        restored_synced = bool(st.synced.all())
+        n = restored.run(max_blocks=4)
+        counts = k.counts()
+    launched_only_kernels(counts, 4, "restored server")
+    add(counts)
+    delay_moved = float(np.abs(restored.state.delay - saved.delay).max())
+    contiguous(pub.ref_seqs, int(saved.block_idx) + 1, "restored server")
+    if not (restored_synced and n == 4 and np.array_equal(st.delay, saved.delay)
+            and delay_moved < 0.05):
+        raise AssertionError(f"checkpoint: synced {restored_synced}, published {n}, "
+                             f"delay moved {delay_moved}")
+    out["checkpoint"] = dict(restored_synced=restored_synced,
+                             status=synced_line(restored, N_CH, "restored server"),
+                             first_ref_seq=pub.ref_seqs[0], saved_block_idx=int(saved.block_idx),
+                             max_abs_delay_moved=delay_moved,
+                             # the first frame's window is half the zero history
+                             frames=check_frames(list(pub.last)[1:], N_CH, "restored server"))
+
+    # The generic path: fft_impl="pallas", 64 blocks at scan depth 8.
+    gcfg = PipelineConfig(n_channels=N_CH, block_len=L, **GENERIC)
+    pub = RecordingPublisher()
+    gsrv = CoherentServer(gcfg, FileSource(sub_capture(cap, 0, 64)), publisher=pub,
+                          control=QueueControl(), scan_depth=8, device=dev)
+    fk.reset_counts()
+    k.reset_counts()
+    n = gsrv.run()
+    four = fk.counts()
+    launched_only(four, dict(fft_launches=2 * n, ifft_launches=2 * n), "generic server")
+    launched_only(k.counts(), {}, "generic server (fused kernels)")
+    contiguous(pub.ref_seqs, 1, "generic server")
+    out["generic"] = dict(**GENERIC, scan_depth=8, blocks_served=n, launches=four,
+                          status=synced_line(gsrv, N_CH, "generic server"))
+
+    # Farrow on the card against the same call on the CPU.
+    g = torch.Generator().manual_seed(16)
+    x = torch.complex(torch.randn((N_CH, 4 * L), generator=g),
+                      torch.randn((N_CH, 4 * L), generator=g))
+    adv = (torch.linspace(-40.5, 37.25, 4 * L)[None]
+           + torch.rand((N_CH, 1), generator=g) * 10)
+    farrow_err = (farrow_fractional_delay(x.to(dev), adv.to(dev)).cpu()
+                  - farrow_fractional_delay(x, adv)).abs().max().item()
+    if not farrow_err <= FARROW_ATOL:
+        raise AssertionError(f"Farrow on the card off the CPU by {farrow_err}")
+    out["farrow_max_abs_err_vs_cpu"] = farrow_err
+    return out, launches, four
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -930,8 +1368,13 @@ def main():
               copy_bit_equal=copy_equal, copy_shape=list(raw.shape), ms=ms15, runs=runs15,
               copy_reps=COPY_REPS, copy_over_clone=ms15["copy"] / ms15["copy_lib"]))
 
-    # The kernels line. launches: the main path's runs (phases 3, 5, 14 and
-    # 15 for the i8 kernels; 9, 11 and 12 for the four-step; 12 for the
+    # 16. The streaming server (io/server.py): fused at scan depth 1 and 32,
+    # console and hot-plug, checkpoint, the generic path, Farrow.
+    rec16, counts_server, counts_gserver = phase_server(dev, smi, k, fk)
+    emit(rec16)
+
+    # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15
+    # and 16 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
     # float kernels; 15 for the copy). max_abs_err: the largest
     # kernel-vs-plain difference seen (R for the reference kernel, lag in
     # samples for the i8 measure kernels, wire LSB for the i8 applies,
@@ -941,7 +1384,7 @@ def main():
     # time under torch.profiler (phase 7 for the handoff apply, 13 for the
     # float pair). bound_ms, bound_by: tools/cost_model.py at those shapes.
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
-                for c in counts_offline}
+                + counts_server[c] for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
     m = round((2 * L) ** 0.5)
     shape = (T_OFFLINE, N_CH, m)
@@ -956,7 +1399,8 @@ def main():
 
     fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
-                         + counts_fsp["fft_launches"])
+                         + counts_fsp["fft_launches"] + counts_gserver["fft_launches"]
+                         + counts_gserver["ifft_launches"])
     # Registers, stack and spills of every kernel; the fourteen tensor-core
     # instantiations (measure and apply) must use no stack and spill nothing.
     ptxas = {src: fused_cuda.ptxas_usage(report[src]) for src in fused_cuda.SOURCES}

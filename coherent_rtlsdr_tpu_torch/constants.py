@@ -25,3 +25,9 @@ PHASE_EMA_ALPHA = 0.5
 
 # int8 <-> float quantization scale.
 IQ_SCALE = 1.0 / 127.0
+
+# Tuner limits of the console's fcenter command (1-1800 MHz), and the
+# default centre frequency.
+FCENTER_MIN_HZ = 1e6
+FCENTER_MAX_HZ = 1800e6
+DEFAULT_FCENTER = 1024e6

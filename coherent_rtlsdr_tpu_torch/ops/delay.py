@@ -1,10 +1,11 @@
-"""Fractional-delay correction in the frequency domain (port of the ramp
-half of ``coherent_rtlsdr_tpu/ops/delay.py``): the delay ramp, its
-application with a phase factor, and the overlap-save streaming advance.
+"""Fractional-delay correction (port of ``coherent_rtlsdr_tpu/ops/delay.py``):
+the delay ramp, its application with a phase factor and the overlap-save
+streaming advance in the frequency domain, and the 4-tap cubic-Lagrange
+Farrow interpolator in the time domain (per-sample advances, e.g. the
+synthesizer's residual clock skew).
 
 Sign convention: a channel measured at lag d (delayed by d) is corrected by
-advancing it d samples. The time-domain Farrow interpolator is not ported
-yet (ROADMAP.md, Queue 1).
+advancing it d samples.
 """
 
 from typing import Tuple
@@ -80,3 +81,35 @@ def overlap_save_advance(hist: torch.Tensor, cur: torch.Tensor, advance: torch.T
     w = torch.cat([hist, cur], dim=-1)
     y = torch.fft.ifft(apply_delay_phase_freq(torch.fft.fft(w, dim=-1), advance, phase), dim=-1)
     return cur, y[..., L // 2: L // 2 + L].to(w.dtype)
+
+
+# --- Farrow cubic-Lagrange interpolator -----------------------------------
+
+def _farrow_coeffs(mu: torch.Tensor):
+    """Cubic Lagrange basis at ``mu`` in [0, 1) between taps x[n] and
+    x[n+1], over the taps x[n-1], x[n], x[n+1], x[n+2]."""
+    m = torch.as_tensor(mu, dtype=torch.float32)
+    c_m1 = -m * (m - 1.0) * (m - 2.0) / 6.0
+    c_0 = (m + 1.0) * (m - 1.0) * (m - 2.0) / 2.0
+    c_p1 = -(m + 1.0) * m * (m - 2.0) / 2.0
+    c_p2 = (m + 1.0) * m * (m - 1.0) / 6.0
+    return c_m1, c_0, c_p1, c_p2
+
+
+def farrow_fractional_delay(x: torch.Tensor, advance) -> torch.Tensor:
+    """``x(n + advance)`` by a 4-tap cubic-Lagrange Farrow FIR.
+
+    x: ``[..., T]``; advance: a scalar, ``[...]`` (one per batch row) or
+    ``[..., T]`` / ``[T]`` (one per sample). Indices wrap circularly, so
+    callers keep ``ceil(|advance|) + 2`` samples of margin.
+    """
+    T = x.shape[-1]
+    a = torch.as_tensor(advance, dtype=torch.float32, device=x.device)
+    if a.dim() == x.dim() - 1 and a.dim() > 0:
+        a = a[..., None]   # one advance per batch row, broadcast over time
+    pos = torch.arange(T, dtype=torch.float32, device=x.device) + a
+    n0 = torch.floor(pos)
+    mu = (pos - n0).expand(x.shape)
+    n0 = n0.to(torch.int64).expand(x.shape)
+    taps = [torch.gather(x, -1, torch.remainder(n0 + k, T)) for k in (-1, 0, 1, 2)]
+    return sum(t * c.to(x.dtype) for t, c in zip(taps, _farrow_coeffs(mu)))

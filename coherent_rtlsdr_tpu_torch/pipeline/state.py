@@ -194,6 +194,25 @@ def unpack_state(ppack, ipack, hist) -> PipelineState:
     )
 
 
+def pack_state_host(s: PipelineState, device="cuda"):
+    """:func:`pack_state` at the host edge: leaves that may be numpy arrays
+    (an :func:`unpack_state_host` view, edited with ``dataclasses.replace``),
+    torch tensors on any device, or a mix, packed on the CPU and uploaded
+    to ``device``, one copy each."""
+    return tuple(t.to(device) for t in pack_state(state_from_numpy(s, "cpu")))
+
+
+def unpack_state_host(ppack, ipack, hist) -> PipelineState:
+    """:func:`unpack_state` at the host edge: the three packed tensors
+    fetched once each, and the state's leaves as numpy arrays in the JAX
+    package's dtypes (``last_seq`` uint32). The host touchpoints (status,
+    checkpoint, hot-plug) read numpy, and :func:`pack_state_host` takes
+    such a view back. The fetch copies, so editing the leaves leaves the
+    packed tensors as they were, on the CPU too."""
+    host = (t.to("cpu", copy=True) for t in (ppack, ipack, hist))
+    return PipelineState(**state_to_numpy(unpack_state(*host)))
+
+
 def init_state(cfg: PipelineConfig, device="cuda") -> PipelineState:
     """Initial state on ``device``: zero history in the layout of
     ``cfg.fft_impl``, unit phase, no sync."""
@@ -235,9 +254,12 @@ def state_from_numpy(leaves, device="cuda") -> PipelineState:
     get = leaves.__getitem__ if isinstance(leaves, dict) else lambda k: getattr(leaves, k)
     out = {}
     for name, dt in _NUMPY_DTYPES.items():
+        x = get(name)
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
         # np.array, not np.ascontiguousarray: the latter turns the 0-d
         # block_idx into shape (1,).
-        a = np.array(get(name), dtype=np.int64 if name == "last_seq" else dt, order="C")
+        a = np.array(x, dtype=np.int64 if name == "last_seq" else dt, order="C")
         out[name] = torch.from_numpy(a).to(device)
     return PipelineState(**out)
 

@@ -1,4 +1,6 @@
-"""Synthetic multichannel capture with ground truth."""
+"""Synthetic multichannel capture with ground truth, the continuous
+synthetic stream, and the streaming server's block sources
+(``signal/sources.py``)."""
 
 from coherent_rtlsdr_tpu_torch.signal.synth import (
     ChannelTruth,
@@ -6,6 +8,8 @@ from coherent_rtlsdr_tpu_torch.signal.synth import (
     make_truth,
     quantize_u8,
     synth_capture,
+    synth_stream_slab,
 )
 
-__all__ = ["ChannelTruth", "SynthCapture", "make_truth", "quantize_u8", "synth_capture"]
+__all__ = ["ChannelTruth", "SynthCapture", "make_truth", "quantize_u8", "synth_capture",
+           "synth_stream_slab"]

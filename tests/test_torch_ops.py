@@ -32,7 +32,8 @@ def _c64(rng, shape, scale=1.0):
 
 def test_constants_match_jax():
     for name in ("DEFAULT_FS", "DEFAULT_BLOCK_LEN", "SYNC_THRESHOLD", "CTRL_SCALE",
-                 "CTRL_FRAC_T", "PHASE_EMA_ALPHA", "IQ_SCALE"):
+                 "CTRL_FRAC_T", "PHASE_EMA_ALPHA", "IQ_SCALE", "DEFAULT_FCENTER",
+                 "FCENTER_MIN_HZ", "FCENTER_MAX_HZ"):
         assert getattr(tconst, name) == getattr(jconst, name), name
 
 
@@ -204,7 +205,9 @@ def test_init_state_matches_jax_layout():
 
 def test_import_loads_no_jax():
     code = ("import sys, coherent_rtlsdr_tpu_torch.pipeline, coherent_rtlsdr_tpu_torch.signal, "
-            "coherent_rtlsdr_tpu_torch.kernels.fused_cuda; "
+            "coherent_rtlsdr_tpu_torch.kernels.fused_cuda, coherent_rtlsdr_tpu_torch.io.server, "
+            "coherent_rtlsdr_tpu_torch.signal.sources, "
+            "coherent_rtlsdr_tpu_torch.apps.coherent_server; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'coherent_rtlsdr_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

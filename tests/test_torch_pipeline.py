@@ -9,6 +9,8 @@ the measurement differences of tests/test_torch_fused.py); wire bytes max
 exactly.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,10 +200,18 @@ def test_synth_capture_truth_is_recovered():
 
 def test_unported_paths_raise():
     """What the port does not run raises instead of running something else:
-    ppm != 0 in the synthesizer (it needs the Farrow interpolator), a lag
-    method the backend does not have, a length the four-step cannot take."""
-    with pytest.raises(NotImplementedError, match="Farrow"):
-        synth_capture(torch.Generator(), make_truth(2, max_ppm=1.0), 2, L)
+    a lag method the backend does not have, a length the four-step cannot
+    take. ppm != 0 in the synthesizer runs (the Farrow interpolator): at
+    ~1 ppm over two blocks the skew moves the bytes by at most 1 LSB from
+    the same draw without it."""
+    skew = make_truth(2, max_ppm=1.0)
+    assert np.all(skew.ppm != 0)
+    cap = synth_capture(torch.Generator().manual_seed(0), skew, 2, L)
+    flat = synth_capture(torch.Generator().manual_seed(0),
+                         dataclasses.replace(skew, ppm=np.zeros(2, np.float32)), 2, L)
+    assert tuple(cap.sig_u8.shape) == (2, 2, L, 2) and torch.equal(cap.ref_u8, flat.ref_u8)
+    d = (cap.sig_u8.int() - flat.sig_u8.int()).abs()
+    assert d.max().item() <= 1 and d.sum().item() > 0
     x = torch.zeros((2, 2, L, 2), dtype=torch.uint8)
     bad = PipelineConfig(n_channels=2, block_len=L, fft_impl="fused")   # phase_slope
     with pytest.raises(ValueError, match="phase_zoom"):
