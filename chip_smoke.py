@@ -77,6 +77,33 @@ socket:
      server (``pallas``, 64 blocks at scan depth 8, 2 + 2 four-step
      launches a block); Farrow on the card against the CPU.
 
+The native host edge (``native.py`` over ``csrc/coherent_host.cc``, built
+with g++ at first use) feeding the fused server:
+
+ 17. (a) the native library's build seconds, whether it loads libzmq and
+     whether ``ldconfig -p`` lists ``libzmq.so.5``; (b) phase 16's capture
+     continued to 2,286 blocks and written as raw ring blocks (ref first)
+     to /dev/shm or the temp directory, deleted at the end; (c) a paced
+     ``NativeProducer.file`` -> ``NativeBlockRing`` -> ``RingSource`` ->
+     server chain at scan depth 1 and 32, 128 blocks each: no ring drops,
+     the first 64 frames bit-equal to phase 16's on the same bytes, 21 / 21
+     synced, phase 16's frame bars on the last 16, one launch of each
+     fused kernel a block; (d) the producer paced at 250 blocks/s (21 ch x
+     2.048 Msps) into a 256-slot ring, a 1,000-block timed window at each
+     depth after a warm-up and a drain: samples/s, ring drops, the fill at
+     the window's end and the loop's host time by part (``source`` is
+     ``RingSource.next_block``); at depth 32 no drop and an end fill of at
+     most 64 blocks (depth 1 is recorded, with no bar); (e) where libzmq
+     loads, the depth-32 window again through ``NativePublisher`` on a
+     loopback TCP port, read back by the port's ``NativeProducer.zmq``:
+     the first 64 frames byte for byte against ``io/wire.pack_frame`` of
+     the same outputs, and the worker's publish ms a block beside (d)'s
+     in-process publisher's; (f) the mock librtlsdr
+     (``tests/data/mock_librtlsdr.c``, built with gcc) behind ``RtlSource``,
+     3 signal channels, 64 blocks at depth 1: each channel's seqnums
+     contiguous, one launch of each fused kernel a block, and an
+     ``HwDriftRelief`` pulse and its restore in the mock's call log.
+
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the ptxas report of every kernel
 (registers, stack, spills; the fourteen tensor-core instantiations of the
@@ -90,6 +117,7 @@ to this file.
 """
 
 import json
+import os
 import statistics
 import sys
 import time
@@ -566,7 +594,7 @@ class RecordingPublisher:
 
         self.keep_first = keep_first
         self.first, self.last = [], collections.deque(maxlen=16)
-        self.ref_seqs = []
+        self.ref_seqs, self.seqnums = [], []
 
     def publish(self, iq_i8, seqnums, phases=None):
         from coherent_rtlsdr_tpu_torch.io.wire import pack_debug, pack_frame
@@ -575,6 +603,7 @@ class RecordingPublisher:
         if phases is not None:
             pack_debug(phases)
         self.ref_seqs.append(int(seqnums[0]))
+        self.seqnums.append(seqnums)
         if len(self.first) < self.keep_first:
             self.first.append(buf)
         self.last.append(buf)
@@ -739,10 +768,14 @@ def host_breakdown(srv, n_blocks):
                       included)
       worker_publish  ``CoherentServer._publish_batch`` less its fetch
                       (frame assembly and publish)
+
+    ``longest_call_ms``: each wrapped function's longest single call, which
+    tells a steady cost from a few stalls.
     """
     import collections
 
     spent = collections.defaultdict(float)
+    longest = collections.defaultdict(float)
 
     def timed(name, fn):
         def run(*args, **kwargs):
@@ -750,7 +783,9 @@ def host_breakdown(srv, n_blocks):
             try:
                 return fn(*args, **kwargs)
             finally:
-                spent[name] += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                spent[name] += dt
+                longest[name] = max(longest[name], dt)
         return run
 
     parts = [("source", srv.source, "next_block"), ("stage", srv, "_stage"),
@@ -779,7 +814,8 @@ def host_breakdown(srv, n_blocks):
     return dict(blocks=n, wall_ms_per_block=ms(wall), source=ms(spent["source"]),
                 stage=ms(spent["stage"]), dispatch=ms(spent["dispatch"]),
                 main_rest=ms(wall - main), worker_fetch=ms(spent["fetch"]),
-                worker_publish=ms(spent["publish"] - spent["fetch"]))
+                worker_publish=ms(spent["publish"] - spent["fetch"]),
+                longest_call_ms={name: v * 1e3 for name, v in longest.items()})
 
 
 def phase_server(dev, smi, k, fk):
@@ -957,8 +993,373 @@ def phase_server(dev, smi, k, fk):
     if not farrow_err <= FARROW_ATOL:
         raise AssertionError(f"Farrow on the card off the CPU by {farrow_err}")
     out["farrow_max_abs_err_vs_cpu"] = farrow_err
-    return out, launches, four
+    return out, launches, four, cap, want
 
+
+# Phase 17: the native ring server (native.py + csrc/coherent_host.cc) at
+# N = 21, L = 8192.
+RING_PACE = 2.048e6 / L      # blocks/s of a real-time array (250)
+RING_SLOTS = 256              # holds 8 batches of 32 (the JAX default 16 cannot hold one)
+RING_SLABS = 9                # slabs of the capture file: 2,286 blocks, ~824 MB
+RING_SERVE = 128              # (c): blocks a bit-equality run serves
+RING_WARM = 64                # (d), (e): blocks before the ring is drained
+RING_WINDOW = 1000            # (d), (e): blocks a timed window
+RING_FILL_MAX = 64            # (d): most blocks left in the ring at a window's end
+MOCK_SERIALS = ["MOCKREF0", "MOCK0001", "MOCK0002", "MOCK0003"]
+MOCK_SLOTS = 1024             # 2 s of the mock's ~500 blocks/s
+
+
+class TeePublisher:
+    """Publishes through ``inner`` (the native publisher) and keeps
+    ``io/wire.pack_frame`` of the first ``keep_first`` frames' outputs,
+    numbered as the native publisher numbers them."""
+
+    def __init__(self, inner, keep_first):
+        self.inner, self.keep_first = inner, keep_first
+        self.first, self.count = [], 0
+
+    def publish(self, iq_i8, seqnums, phases=None):
+        from coherent_rtlsdr_tpu_torch.io.wire import pack_frame
+
+        if len(self.first) < self.keep_first:
+            self.first.append(pack_frame(self.count, seqnums, iq_i8))
+        self.count += 1
+        return self.inner.publish(iq_i8, seqnums, phases)
+
+
+class RingReader:
+    """A thread popping a receive ring as fast as frames arrive: keeps the
+    first ``keep`` blocks with their seqnums and counts the rest."""
+
+    def __init__(self, ring, keep):
+        import threading
+
+        self.ring, self.keep = ring, keep
+        self.first, self.count = [], 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            out = self.ring.pop_n(timeout_ms=100)
+            if out is None:
+                continue
+            if len(self.first) < self.keep:
+                self.first.append(out[:2])
+            self.count += 1
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def free_tcp_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ring_file_dir(nbytes):
+    """/dev/shm when it holds the file with room to spare, else the temp
+    directory; raises when neither does."""
+    import shutil
+    import tempfile
+
+    for d in ("/dev/shm", tempfile.gettempdir()):
+        if os.path.isdir(d) and shutil.disk_usage(d).free > 1.5 * nbytes:
+            return d
+    raise AssertionError(f"no directory with {1.5 * nbytes / 1e9:.1f} GB free for the ring file")
+
+
+def ring_server(cfg, path, depth, dev, publisher):
+    """A paced file producer (RING_PACE blocks/s, no loop) into a fresh
+    ring of RING_SLOTS, a RingSource and a server at ``depth`` reading it:
+    (server, ring, producer). The producer starts last, so the ring fills
+    only while the server runs."""
+    from coherent_rtlsdr_tpu_torch import native
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.signal.sources import RingSource
+
+    ring = native.NativeBlockRing(RING_SLOTS, (N_CH + 1) * 2 * L, n_seq=N_CH + 1)
+    srv = CoherentServer(cfg, RingSource(ring, N_CH, L), publisher=publisher,
+                         control=QueueControl(), scan_depth=depth, device=dev)
+    producer = native.NativeProducer.file(ring, path, rate_blocks_per_s=RING_PACE)
+    return srv, ring, producer
+
+
+def host_state():
+    """The CPU seconds this process has used, the CPUs it may run on, and
+    the memory the kernel reports available and in shmem (GB)."""
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":")
+            if key in ("MemAvailable", "Shmem"):
+                mem[key + "_gb"] = int(value.split()[0]) / 2 ** 20
+    return dict(cpu_s=time.process_time(), cpus=len(os.sched_getaffinity(0)), **mem)
+
+
+def paced_window(srv, ring, producer, k, where):
+    """RING_WARM blocks, the ring drained, then a timed window of
+    RING_WINDOW blocks with the loop's host time split by part (source =
+    ``RingSource.next_block``, its wait for the producer included), and
+    what the process got from its host over the window. Returns the
+    window's record and the launch counts of both runs."""
+    k.reset_counts()
+    if srv.run(max_blocks=RING_WARM) != RING_WARM:
+        raise AssertionError(f"{where}: warm-up published too few frames")
+    drained = srv.source.drain()
+    drops0 = ring.dropped
+    before = host_state()
+    host = host_breakdown(srv, RING_WINDOW)
+    after = host_state()
+    fill_end, drops = ring.fill, ring.dropped - drops0
+    counts = k.counts()
+    producer_at_eof = not producer.running
+    producer.stop()
+    wall_s = host["wall_ms_per_block"] * host["blocks"] / 1e3
+    launched_only_kernels(counts, RING_WARM + host["blocks"], where)
+    return dict(window_blocks=host["blocks"], window_s=wall_s,
+                samples_per_s=host["blocks"] * N_CH * L / wall_s, drained_before=drained,
+                ring_drops=drops, ring_drops_total=ring.dropped, ring_fill_end=fill_end,
+                keeps_real_time=(ring.dropped == 0 and fill_end <= RING_FILL_MAX
+                                 and host["blocks"] == RING_WINDOW),
+                producer_at_eof=producer_at_eof, host_ms_per_block=host,
+                host=dict(after, cpu_s=after["cpu_s"] - before["cpu_s"]),
+                status=srv.status().splitlines()[0]), counts
+
+
+def mock_dongles(dev, k, tmp):
+    """(f): the mock librtlsdr behind RtlSource, 3 signal channels at
+    L = 8192, fused, 64 blocks at scan depth 1, with an HwDriftRelief whose
+    pulse must reach the mock's set_sample_freq_correction_f log. ``tmp``
+    must allow executables (/dev/shm may not)."""
+    import subprocess
+
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch import native
+    from coherent_rtlsdr_tpu_torch.io.hwcontrol import MAX_CORR, SCALE, HwDriftRelief
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.signal.sources import RtlSource
+
+    so = os.path.join(tmp, "libmock_rtlsdr.so")
+    mock_src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "mock_librtlsdr.c")
+    subprocess.run(["gcc", "-shared", "-fPIC", "-O2", "-o", so, mock_src], check=True,
+                   timeout=120)
+    if not native.rtlsdr_load(so):
+        raise AssertionError("the mock librtlsdr did not load")
+    log = os.path.join(tmp, "mock_calls.log")
+    os.environ["MOCK_RTLSDR_LOG"] = log
+    n = len(MOCK_SERIALS) - 1
+    cfg = PipelineConfig(n_channels=n, block_len=L, fft_impl="fused", lag_method="phase_zoom")
+    src = RtlSource.start(MOCK_SERIALS, block_len=L, ring_slots=MOCK_SLOTS, fs=2.048e6,
+                          fcenter=1024e6)
+    try:
+        pub = RecordingPublisher()
+        srv = CoherentServer(cfg, src, publisher=pub, control=QueueControl(), device=dev)
+        relief = HwDriftRelief(src.capture, fs=2.048e6, threshold=8.0)
+        ticks = []
+        tick = relief.tick
+        relief.tick = lambda delays, now=None: ticks.append(len(delays)) or tick(delays, now)
+        relief.tick([0.0, 100.0, 0.0])   # dongle 2 mid-dwell as the loop starts
+        srv.hw_relief = relief
+        k.reset_counts()
+        served = srv.run(max_blocks=64)
+        counts = k.counts()
+        status = srv.status().splitlines()
+    finally:
+        src.stop()
+        os.environ.pop("MOCK_RTLSDR_LOG", None)
+    launched_only_kernels(counts, served, "mock dongles")
+    seqs = np.array(pub.seqnums, np.int64)   # [T, 1 + n]: ref, then each dongle
+    with open(log) as f:
+        hits = [tuple(int(v) for v in (i, a)) for i, fn, a in (ln.split() for ln in f)
+                if fn == "set_sample_freq_correction_f"]
+    # the pulse on dongle 2 (tanh law, nano-units), then its restore
+    pulse = MAX_CORR * np.tanh(100.0 / SCALE) * 1e9
+    at = next((i for i, (dongle, v) in enumerate(hits)
+               if dongle == 2 and abs(v - pulse) <= 1000), None)
+    rec = dict(serials=MOCK_SERIALS, blocks_served=served, launches=counts,
+               ring_drops=src._ring.dropped, channel_drops=src.capture.dropped,
+               seqnums_contiguous=bool((np.diff(seqs[:, 1:], axis=0) == 1).all()),
+               first_seqnums=seqs[0].tolist(), relief_ticks_from_loop=len(ticks) - 1,
+               correction_calls=hits,
+               capture_status=[line for line in status if line.startswith("capture:")])
+    if not (served == 64 and rec["seqnums_contiguous"] and rec["ring_drops"] == 0
+            and rec["channel_drops"] == 0 and seqs.shape == (64, 1 + n)
+            and len(ticks) >= 2 and at is not None and (2, 0) in hits[at + 1:]):
+        raise AssertionError(f"mock dongles: {rec}")
+    return rec, counts
+
+
+def phase_ring_server(dev, smi, k, cap16, want16):
+    """Phase 17: (a) the native library's build and libzmq; (b) phase 16's
+    capture (same seed, more slabs) as a raw ring file; (c) frames of a
+    file producer -> ring -> RingSource -> server chain at scan depth 1 and
+    32, bit-equal to phase 16's on the same bytes; (d) the chain paced at
+    RING_PACE blocks/s, a timed window at each depth; (e) the depth-32
+    window again through the native publisher, its frames read back by the
+    port's own ZMQ producer; (f) mock dongles. Each part prints its own
+    line. Returns the fused kernel launches of every part."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch import native
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                         lag_method="phase_zoom")
+    launches = dict.fromkeys(k.counts(), 0)
+
+    def add(counts):
+        for name, v in counts.items():
+            launches[name] += v
+
+    # (a) Build and environment.
+    built_before = native.library_path().exists()
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    build_s = time.perf_counter() - t0
+    zmq_loads = bool(native._load().chost_zmq_available())
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        listed = "libzmq.so.5" in subprocess.run([ldconfig, "-p"], capture_output=True,
+                                                 text=True, timeout=30).stdout
+    except OSError:
+        listed = None
+    try:
+        import zmq
+
+        pyzmq = dict(version=zmq.__version__, libzmq=zmq.zmq_version())
+    except ImportError:
+        pyzmq = None
+    emit(dict(phase="ring_server", part="build", card=smi, native_build_s=build_s,
+              was_built_before=built_before, library=os.path.basename(lib_path),
+              chost_zmq_available=zmq_loads, ldconfig_lists_libzmq_so_5=listed, pyzmq=pyzmq))
+
+    # (b) The capture file: raw ring blocks (ref first), phase 16's
+    # capture continued, no loop.
+    t0 = time.perf_counter()
+    cap, _ = render_capture(RING_SLABS * SERVER_SLAB, dev)
+    if not (np.array_equal(cap.sig_u8[:cap16.n_blocks], cap16.sig_u8)
+            and np.array_equal(cap.ref_u8[:cap16.n_blocks], cap16.ref_u8)):
+        raise AssertionError("ring capture: its first blocks are not phase 16's bytes")
+    block_bytes = (N_CH + 1) * 2 * L
+    tmp = tempfile.mkdtemp(prefix="ring_server_", dir=ring_file_dir(cap.n_blocks * block_bytes))
+    path = os.path.join(tmp, "capture.raw")
+    try:
+        with open(path, "wb") as f:
+            for t in range(cap.n_blocks):
+                f.write(cap.ref_u8[t].tobytes())
+                f.write(cap.sig_u8[t].tobytes())
+        del cap
+        emit(dict(phase="ring_server", part="capture_file", card=smi, blocks=RING_SLABS * SERVER_SLAB,
+                  block_bytes=block_bytes, file_bytes=os.path.getsize(path), dir=os.path.dirname(tmp),
+                  render_and_write_s=time.perf_counter() - t0))
+
+        # (c) Bit-equality at scan depth 1 and 32 (paced, so the ring never
+        # fills while the server serves RING_SERVE blocks).
+        rec = dict(phase="ring_server", part="bit_equal", card=smi, N=N_CH, L=L,
+                   pace_blocks_per_s=RING_PACE, ring_slots=RING_SLOTS)
+        for depth in (1, 32):
+            where = f"ring server K={depth}"
+            pub = RecordingPublisher(keep_first=SERVER_WARM)
+            srv, ring, producer = ring_server(cfg, path, depth, dev, pub)
+            k.reset_counts()
+            served = srv.run(max_blocks=RING_SERVE)
+            counts = k.counts()
+            producer.stop()
+            if served != RING_SERVE or ring.dropped:
+                raise AssertionError(f"{where}: served {served}, ring drops {ring.dropped}")
+            launched_only_kernels(counts, served, where)
+            add(counts)
+            contiguous(pub.ref_seqs, 1, where)
+            if not (np.array(pub.seqnums)[:, 1:] == np.arange(1, served + 1)[:, None]).all():
+                raise AssertionError(f"{where}: channel seqnums are not the file's block count")
+            rec[f"scan_depth_{depth}"] = dict(
+                blocks_served=served, ring_drops=ring.dropped, launches=counts,
+                bit_equal_to_phase_16=bit_equal(pub.first, want16, where),
+                status=synced_line(srv, N_CH, where), frames=check_frames(pub.last, N_CH, where))
+        emit(rec)
+
+        # (d) Paced real time: a timed window at each depth.
+        rec = dict(phase="ring_server", part="paced", card=smi, N=N_CH, L=L,
+                   pace_blocks_per_s=RING_PACE, realtime_samples_per_s=REALTIME_SAMPLES_S,
+                   ring_slots=RING_SLOTS, publisher="in-process (pack_frame)")
+        for depth in (1, 32):
+            srv, ring, producer = ring_server(cfg, path, depth, dev, RecordingPublisher())
+            window, counts = paced_window(srv, ring, producer, k, f"paced ring server K={depth}")
+            add(counts)
+            rec[f"scan_depth_{depth}"] = window
+        d32 = rec["scan_depth_32"]
+        emit(rec)
+        if not d32["keeps_real_time"]:
+            raise AssertionError(f"paced ring server K=32 fell behind: {d32}")
+
+        # (e) The native publisher, bound on a loopback address, read back
+        # by a native ZMQ producer into a receive ring.
+        if not zmq_loads:
+            emit(dict(phase="ring_server", part="native_publisher", card=smi, libzmq=None))
+        else:
+            data = f"tcp://127.0.0.1:{free_tcp_port()}"
+            debug = f"tcp://127.0.0.1:{free_tcp_port()}"
+            rx_ring = native.NativeBlockRing(1024, block_bytes, n_seq=N_CH + 1)
+            rx = native.NativeProducer.zmq(rx_ring, data)   # connects until the bind
+            reader = RingReader(rx_ring, keep=SERVER_WARM)
+            native_pub = native.NativePublisher(data, debug)
+            tee = TeePublisher(native_pub, keep_first=SERVER_WARM)
+            try:
+                time.sleep(0.5)   # the subscription reaches the publisher
+                srv, ring, producer = ring_server(cfg, path, 32, dev, tee)
+                window, counts = paced_window(srv, ring, producer, k, "native publisher K=32")
+                add(counts)
+            finally:
+                native_pub.close()   # while the receiver still reads
+                deadline = time.time() + 10
+                while reader.count < tee.count and time.time() < deadline:
+                    time.sleep(0.01)
+                rx.stop()
+                reader.stop()
+            from coherent_rtlsdr_tpu_torch.io.wire import pack_frame
+
+            got = [pack_frame(i, seqs.astype(np.uint32),
+                              (buf ^ np.uint8(0x80)).view(np.int8).reshape(N_CH + 1, L, 2))
+                   for i, (buf, seqs) in enumerate(reader.first)]
+            equal = sum(g == w for g, w in zip(got, tee.first))
+            rec = dict(phase="ring_server", part="native_publisher", card=smi, libzmq=True,
+                       address=data, published=tee.count, received=reader.count,
+                       receive_ring_drops=rx_ring.dropped, rejected=rx.rejected,
+                       frames_compared=len(got), frames_equal_to_pack_frame=equal,
+                       worker_publish_ms_per_block=window["host_ms_per_block"]["worker_publish"],
+                       in_process_worker_publish_ms_per_block=d32["host_ms_per_block"][
+                           "worker_publish"],
+                       window=window)
+            emit(rec)
+            if not (len(got) == SERVER_WARM and equal == SERVER_WARM
+                    and window["ring_drops_total"] == 0):
+                raise AssertionError(f"native publisher: {rec}")
+
+        # (f) Mock dongles.
+        mock_tmp = tempfile.mkdtemp(prefix="mock_rtlsdr_")
+        try:
+            rec_f, counts = mock_dongles(dev, k, mock_tmp)
+        finally:
+            shutil.rmtree(mock_tmp, ignore_errors=True)
+        add(counts)
+        emit(dict(phase="ring_server", part="mock_dongles", card=smi, N=len(MOCK_SERIALS) - 1,
+                  L=L, **rec_f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -1370,11 +1771,17 @@ def main():
 
     # 16. The streaming server (io/server.py): fused at scan depth 1 and 32,
     # console and hot-plug, checkpoint, the generic path, Farrow.
-    rec16, counts_server, counts_gserver = phase_server(dev, smi, k, fk)
+    rec16, counts_server, counts_gserver, cap16, want16 = phase_server(dev, smi, k, fk)
     emit(rec16)
 
-    # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15
-    # and 16 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
+    # 17. The native ring server: the port's native host edge (C++ ring,
+    # file / ZMQ / librtlsdr producers, native publisher) feeding the fused
+    # server.
+    counts_ring = phase_ring_server(dev, smi, k, cap16, want16)
+    del cap16, want16
+
+    # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15,
+    # 16 and 17 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
     # float kernels; 15 for the copy). max_abs_err: the largest
     # kernel-vs-plain difference seen (R for the reference kernel, lag in
     # samples for the i8 measure kernels, wire LSB for the i8 applies,
@@ -1384,7 +1791,7 @@ def main():
     # time under torch.profiler (phase 7 for the handoff apply, 13 for the
     # float pair). bound_ms, bound_by: tools/cost_model.py at those shapes.
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
-                + counts_server[c] for c in counts_offline}
+                + counts_server[c] + counts_ring[c] for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
     m = round((2 * L) ** 0.5)
     shape = (T_OFFLINE, N_CH, m)

@@ -21,7 +21,12 @@ Subpackages mirror the JAX package, which stays the reference:
 ops        conversion, phase EMA, delay ramps, spectral stats, lag estimation
 kernels    four-step FFT, fused measure/apply, permuted ops, backends
 pipeline   state, control law, streaming step and drivers, offline engine
-signal     synthetic capture with ground truth
+signal     synthetic capture with ground truth, the server's block sources
+io         the streaming server and its host edge (wire, console, ZMQ,
+           client, drift relief)
+native     the C++ host runtime (block ring, file / ZMQ / librtlsdr capture
+           threads, packetizer and publisher), built with g++ at first use
+apps       the server, the offline aligner and the capture daemon
 
 The package imports torch and numpy, and nothing of JAX or of the JAX
 package.

@@ -10,17 +10,19 @@ Loop per batch of blocks:
      of ``pipeline/drivers.py`` on the device;
   4. hand the outputs to the publisher worker, which copies them to the
      host on a side stream and publishes the frames on :5555 / :5557;
-  5. drain the control socket and apply console commands.
+  5. drain the control socket and apply console commands;
+  6. at most 4 times a second, hand the applied delays to the hardware
+     drift relief (``io/hwcontrol.py``) when one is attached.
 
 The state is carried on the device as the packed triple of
 ``pipeline/state.pack_state``; the ``state`` property is its host view.
 Calibration persists across restarts (``save_state`` / ``restore_state``,
 the JAX package's npz layout).
 
-Not in this port yet: the channel-sharded mesh (``parallel/``), the
-hardware drift relief (``io/hwcontrol.py``) and the native C++ publisher
-(``native.py``). The constructor and the ``hw_relief`` setter raise for
-them.
+The publisher is the native C++ packetizer (``native.py``) where it
+builds and finds libzmq, else pyzmq's ``FramePublisher``. Not in this port
+yet: the channel-sharded mesh (``parallel/``); the constructor raises for
+it.
 """
 
 import dataclasses
@@ -28,6 +30,7 @@ import logging
 import os
 import queue
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -37,6 +40,7 @@ from coherent_rtlsdr_tpu_torch import constants
 from coherent_rtlsdr_tpu_torch.io.console import ConsoleDispatcher
 from coherent_rtlsdr_tpu_torch.pipeline.drivers import make_packed_scan_runner, make_packed_step
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
+    PPACK_COLS,
     TELEMETRY_COLS,
     PipelineConfig,
     PipelineState,
@@ -53,8 +57,7 @@ logger = logging.getLogger("coherent_rtlsdr_tpu_torch")
 # packed-telemetry column index map (pipeline/state.TELEMETRY_COLS order)
 _TCOL = {name: j for j, name in enumerate(TELEMETRY_COLS)}
 
-LATER_SLICE = ("is not ported yet: it comes with the port's native host slice "
-                "(native.py, io/hwcontrol.py) and then parallel/ (ROADMAP.md, Queue 1)")
+LATER_SLICE = "is not ported yet: it comes with parallel/ (ROADMAP.md, Queue 1)"
 
 
 class _LogRing(logging.Handler):
@@ -70,6 +73,36 @@ class _LogRing(logging.Handler):
         self._lines.append(self.format(record))
         if len(self._lines) > self._maxlen:
             del self._lines[: len(self._lines) - self._maxlen]
+
+
+def _os_picks_port(addr: str) -> bool:
+    """A TCP address whose port the OS picks at bind time (``:*``, ``:!``)."""
+    return addr.startswith("tcp://") and addr.rsplit(":", 1)[-1] in ("*", "!")
+
+
+def _make_publisher(data_addr: str, debug_addr: str, header: bool):
+    """The native C++ packetizer and publisher (frame assembly and send in
+    C++, outside the interpreter lock), else pyzmq's ``FramePublisher``.
+    pyzmq is chosen only when the native library has no compiler to build
+    it, when it cannot load libzmq, or for an address whose port the OS
+    picks (only pyzmq's sockets report the bound port back). A failed build
+    or a failed bind raises."""
+    from coherent_rtlsdr_tpu_torch import native
+
+    if _os_picks_port(data_addr) or _os_picks_port(debug_addr):
+        logger.info("publisher: pyzmq (the OS picks the port of %s / %s)", data_addr,
+                    debug_addr)
+    else:
+        try:
+            pub = native.NativePublisher(data_addr.replace("*", "0.0.0.0"),
+                                         debug_addr.replace("*", "0.0.0.0"), header=header)
+            logger.info("publisher: native (%s, debug %s)", data_addr, debug_addr)
+            return pub
+        except (native.NativeUnavailable, native.LibzmqUnavailable) as e:
+            logger.info("publisher: pyzmq (%s)", e)
+    from coherent_rtlsdr_tpu_torch.io.zmq_edge import FramePublisher
+
+    return FramePublisher(data_addr=data_addr, debug_addr=debug_addr, header=header)
 
 
 class CoherentServer:
@@ -127,12 +160,13 @@ class CoherentServer:
         logger.setLevel(logging.INFO)
         self.telemetry = TelemetryRecorder()
         self._local_lines = None  # stdin queue when interactive (start_local_console)
+        # optional io.hwcontrol.HwDriftRelief (rtlsdr source): ticked from
+        # the loop with the applied delays, at most every 0.25 s
+        self.hw_relief = None
+        self._hw_relief_next = 0.0
 
         if publisher is None:
-            from coherent_rtlsdr_tpu_torch.io.zmq_edge import FramePublisher
-
-            publisher = FramePublisher(data_addr=data_addr, debug_addr=debug_addr,
-                                       header=header)
+            publisher = _make_publisher(data_addr, debug_addr, header)
         if control is None:
             from coherent_rtlsdr_tpu_torch.io.zmq_edge import ControlServer
 
@@ -162,14 +196,10 @@ class CoherentServer:
     def state(self, s: PipelineState) -> None:
         self._st = pack_state_host(s, self.device)
 
-    @property
-    def hw_relief(self):
-        return None
-
-    @hw_relief.setter
-    def hw_relief(self, relief) -> None:
-        if relief is not None:
-            raise NotImplementedError(f"the hardware drift relief {LATER_SLICE}")
+    def _delays_host(self) -> np.ndarray:
+        """The applied per-channel delays: one column of the small packed
+        tensor, fetched (and waited for) alone."""
+        return self._st[0][:, PPACK_COLS.index("delay")].cpu().numpy()
 
     def _block_idx_host(self) -> int:
         return int(self._st[1][0, 3].item())
@@ -431,13 +461,26 @@ class CoherentServer:
                 dispatched += len(blocks)
                 self._blocks_done += len(blocks)
                 self._poll_control()
+                if self.hw_relief is not None:
+                    # the host view of delay waits for the dispatch in
+                    # flight, so 4 Hz at most (the relief acts over seconds)
+                    now = time.monotonic()
+                    if now >= self._hw_relief_next:
+                        self._hw_relief_next = now + 0.25
+                        self.hw_relief.tick(self._delays_host()[: self.n_active])
         finally:
             if pub_err:
                 pubq.queue.clear()  # the worker is gone; nothing drains these
             pubq.put(None)
             worker.join()
             # runs even when the loop died (device error, source exception):
-            # a crash must not cost the array its calibration
+            # skewed dongles are restored, and a crash must not cost the
+            # array its calibration
+            if self.hw_relief is not None:
+                try:
+                    self.hw_relief.stop()
+                except Exception:
+                    logger.exception("dongle restore failed on exit")
             if self.state_path:
                 try:
                     self.save_state()
@@ -567,20 +610,31 @@ class CoherentServer:
             lines.append(f"phase drift: {drift:.2f} deg RMS over "
                          f"{t.n_recorded('phase')} blocks")
         lines.append(f"seqnum gaps: {int(gaps.sum())} total")
+        cap = getattr(self.source, "capture", None)
+        if cap is not None:  # rtlsdr source: the native capture's health counters
+            lines.append(f"capture: {'RUNNING' if cap.running else 'STOPPED'}  "
+                         f"frames {cap.pushed}  chan-drops {cap.dropped}  stalls {cap.stalls}")
         cells = [f"ch{i}:{lag[i]:+4.3f}:{mag[i]:4.3f}" for i in range(len(synced))]
         for i in range(0, len(cells), 6):  # 6 devices per line
             lines.append("\t".join(cells[i: i + 6]))
         return "\n".join(lines)
 
     def list_channels(self, all=False) -> str:
-        """``list`` = capturing channels; ``list all`` adds their serials.
-        (The USB inventory comes with the native host slice.)"""
+        """``list`` = capturing channels; ``list all`` adds their serials
+        and, when librtlsdr is loaded, the USB dongle inventory."""
         n = self.n_active
         lines = [f"{n} signal channels + ref"]
         serials = getattr(self.source, "serials", None)
         if serials and all:
             lines[0] += ":"
             lines += [f"  ch{i + 1}: '{s}'" for i, s in enumerate(serials)]
+        if all:
+            from coherent_rtlsdr_tpu_torch import native
+
+            if native.available() and native.rtlsdr_available():
+                inv = native.rtlsdr_enumerate()
+                lines.append(f"USB inventory ({len(inv)} dongles):")
+                lines += [f"  #{i}: '{s}'" for i, s in enumerate(inv)]
         return "\n".join(lines)
 
     def phase_table(self) -> str:

@@ -206,8 +206,11 @@ def test_init_state_matches_jax_layout():
 def test_import_loads_no_jax():
     code = ("import sys, coherent_rtlsdr_tpu_torch.pipeline, coherent_rtlsdr_tpu_torch.signal, "
             "coherent_rtlsdr_tpu_torch.kernels.fused_cuda, coherent_rtlsdr_tpu_torch.io.server, "
-            "coherent_rtlsdr_tpu_torch.signal.sources, "
-            "coherent_rtlsdr_tpu_torch.apps.coherent_server; "
+            "coherent_rtlsdr_tpu_torch.signal.sources, coherent_rtlsdr_tpu_torch.native, "
+            "coherent_rtlsdr_tpu_torch.io.hwcontrol, coherent_rtlsdr_tpu_torch.io.client, "
+            "coherent_rtlsdr_tpu_torch.apps.coherent_server, "
+            "coherent_rtlsdr_tpu_torch.apps.align_offline, "
+            "coherent_rtlsdr_tpu_torch.apps.capture_daemon; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'coherent_rtlsdr_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
