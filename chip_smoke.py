@@ -104,6 +104,32 @@ with g++ at first use) feeding the fused server:
      contiguous, one launch of each fused kernel a block, and an
      ``HwDriftRelief`` pulse and its restore in the mock's call log.
 
+The array models (``coherent_rtlsdr_tpu_torch/models``, no kernel of their
+own: complex64 products and cuSOLVER's eigh / solve) and the MUSIC client
+app, fed by the fused server:
+
+ 18. (a) on the 21 signal channels as the published 7x3 URA, T = 16 x 8192
+     snapshots of two plane waves made on the card from a seeded generator:
+     the steering matrix within 1e-5 and the covariance within 1e-5 of its
+     largest entry of float64; ``music_heatmap``, ``bartlett_spectrum`` and
+     ``mvdr_spectrum`` over the
+     100 x 100 (u, v) grid, each within 0.1 dB of a float64 numpy reference
+     where it lies within 30 dB of its peak, with its peaks within one grid
+     step of the sources; ESPRIT and root-MUSIC on a 21-element ULA within
+     1e-3 rad of the truth; co-array MUSIC resolving five sources on four
+     sensors (tests/test_models.py:121) and the co-array lag averages twice
+     bit-equal; ``nearfield_music`` and ``ml_localize`` finding an emitter's
+     point of a 32^3 grid; each function timed on the card and at
+     device="cpu"; (b) the fused server at scan depth 32 on phase 16's
+     capture publishing through pyzmq on a free loopback port, and ``python3
+     -m coherent_rtlsdr_tpu_torch.apps.music_client --follow`` on the card as
+     a child process once the server is 21 / 21 synced: one launch of each
+     fused kernel a block and no plain run, at least four heatmaps, the last
+     peaking at broadside (the channels carry the reference noise in phase)
+     within one grid step, its saved spectrum within 0.1 dB of the same
+     spectrum recomputed at device="cpu" on the saved snapshots, and the
+     client's spectrum ms an iteration beside the server's frame rate.
+
 Every phase prints one JSON line; a failed check raises, so the exit code is
 not 0. Before the last line it prints the ptxas report of every kernel
 (registers, stack, spills; the fourteen tensor-core instantiations of the
@@ -1362,6 +1388,427 @@ def phase_ring_server(dev, smi, k, cap16, want16):
     return launches
 
 
+# Phase 18: the array models (coherent_rtlsdr_tpu_torch/models) at the
+# production array, and the MUSIC client app fed by the fused server.
+MODEL_ROWS, MODEL_COLS = 7, 3   # the published 7x3 URA of the 21 signal channels
+MODEL_GRID = 100                # heatmap2d's 100 x 100 (u, v) scan: G = 10^4
+MODEL_FRAMES = 16               # T = 16 frames x L = 131,072 snapshots
+# Two plane waves apart by a null of each axis' array factor (2/3 in u for
+# 3 columns, 4/7 in v for 7 rows), so neither biases the other's Bartlett peak.
+MODEL_SOURCES = ((0.3, -0.25), (0.3 - 2 / 3, -0.25 + 4 / 7))
+MODEL_SNR_DB = 20.0
+ULA_THETAS = (-0.35, 0.5)       # rad: ESPRIT / root-MUSIC on a 21-element ULA
+COARRAY_SPARSE = ((0, 0), (1, 0), (4, 0), (6, 0))   # tests/test_models.py:121
+COARRAY_US = (-0.72, -0.35, 0.0, 0.38, 0.7)
+COARRAY_T, COARRAY_GRID = 4000, 241
+NEARFIELD_N = 32                # 32^3 candidate points
+NEARFIELD_AT = (15, 10, 20)     # the emitter's grid point: (1.5, 0.5, 4.0) wavelengths
+MODEL_RUNS = 5                  # timed runs a function, on the card and on the CPU
+# Card against a float64 numpy reference on the same snapshots: each
+# spectrum in dB where the reference lies within 30 dB of its peak.
+SPECTRUM_DB_BAR = 0.1
+SPECTRUM_WITHIN_DB = 30.0
+# The steering matrix (float32 phases up to ~25 rad, so ~2e-6 of rounding)
+# and the covariance (float32 sums over T) against float64, the latter
+# relative to its largest entry: the CPU tests' bars.
+STEERING_ATOL = 1e-5
+COV_REL_BAR = 1e-5
+DOA_ATOL_RAD = 1e-3             # ESPRIT / root-MUSIC against the truth
+CLIENT_SERVE = 128              # blocks served once the client is connected
+CLIENT_ITERS = 4                # heatmaps ([0] .. [3]) before the client is stopped
+
+
+def db_error(got, want):
+    """Max |dB difference| where ``want`` lies within SPECTRUM_WITHIN_DB of
+    its peak."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    near = want >= want.max() * 10 ** (-SPECTRUM_WITHIN_DB / 10)
+    return float(np.abs(10 * np.log10(got[near] / want[near])).max())
+
+
+def reference_spectra(X, pos, uv, n_sources, diag_load=1e-3):
+    """The covariance, the steering matrix and MUSIC, Bartlett and MVDR in
+    float64 numpy on the host: the plain formulas of models/beamform.py."""
+    import numpy as np
+
+    X = X.astype(np.complex128)
+    X = X - X.mean(-1, keepdims=True)
+    R = X @ X.conj().T / X.shape[-1]
+    n = R.shape[0]
+    A = np.exp(2j * np.pi * uv.astype(np.float64) @ pos.astype(np.float64).T)
+    norm = (np.abs(A) ** 2).sum(-1)
+    _, vecs = np.linalg.eigh(R)
+    music = norm / (np.abs(A @ vecs[:, : n - n_sources].conj()) ** 2).sum(-1)
+    bartlett = np.real((A.conj() * (A @ R.T)).sum(-1)) / norm
+    Rl = R + diag_load * np.real(np.trace(R)) / n * np.eye(n)
+    mvdr = 1.0 / np.real((A.T.conj() * np.linalg.solve(Rl, A.T)).sum(0))
+    return dict(R=R, A=A, music=music, bartlett=bartlett, mvdr=mvdr)
+
+
+def peaks_at(P, ax, truths, where):
+    """Within 5 grid steps of each truth, the largest value of the
+    [grid, grid] spectrum lies within one step of it, and the global peak
+    lies within one step of one of them. Returns the peaks' (u, v)."""
+    import numpy as np
+
+    step = float(ax[1] - ax[0])
+    found = []
+    for u0, v0 in truths:
+        iu = np.flatnonzero(np.abs(ax - u0) <= 5 * step)
+        iv = np.flatnonzero(np.abs(ax - v0) <= 5 * step)
+        j = np.unravel_index(np.argmax(P[np.ix_(iv, iu)]), (len(iv), len(iu)))
+        u, v = float(ax[iu[j[1]]]), float(ax[iv[j[0]]])
+        if not (abs(u - u0) <= step and abs(v - v0) <= step):
+            raise AssertionError(f"{where}: the peak near ({u0}, {v0}) is at ({u}, {v})")
+        found.append((u, v))
+    i = int(np.argmax(P))
+    u, v = float(ax[i % len(ax)]), float(ax[i // len(ax)])
+    if not any(abs(u - u0) <= step and abs(v - v0) <= step for u0, v0 in truths):
+        raise AssertionError(f"{where}: the global peak ({u}, {v}) is at no source")
+    return found
+
+
+def host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_models(dev):
+    """Phase 18 (a): each model function on the card at the production
+    array against a float64 numpy reference or the truth, the co-array
+    lags twice bit-equal, and each function timed on the card (CUDA
+    events) and at device="cpu" (host clock), medians of MODEL_RUNS."""
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.models import (
+        bartlett_spectrum,
+        coarray_music_spectrum,
+        esprit_doa,
+        music_heatmap,
+        music_spectrum,
+        mvdr_spectrum,
+        root_music_doa,
+        sample_covariance,
+        steering_vectors,
+        ula_positions,
+        ura_positions,
+        uv_grid,
+    )
+    from coherent_rtlsdr_tpu_torch.models.beamform import _noise_subspace
+    from coherent_rtlsdr_tpu_torch.models.coarray import coarray_covariance_lags
+    from coherent_rtlsdr_tpu_torch.models.localize import make_xyz_grid, ml_localize, nearfield_music
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    T = MODEL_FRAMES * L
+    out = dict(N=MODEL_ROWS * MODEL_COLS, array=f"{MODEL_ROWS}x{MODEL_COLS} URA",
+               G=MODEL_GRID ** 2, T=T)
+
+    def cgauss(*shape):
+        z = torch.randn((2, *shape), generator=gen, device=dev)
+        return torch.complex(z[0], z[1]) / 2 ** 0.5
+
+    def snapshots(a, n_snap, noise_amp):
+        """a [N, K] float64 host steering, unit-power sources: [N, n_snap]
+        complex64 on the card."""
+        A = torch.from_numpy(a.astype(np.complex64)).to(dev)
+        return A @ cgauss(a.shape[1], n_snap) + noise_amp * cgauss(a.shape[0], n_snap)
+
+    noise_amp = 10 ** (-MODEL_SNR_DB / 20)
+
+    # The 7x3 URA, two plane waves: the three spectra and the heatmap.
+    pos = ura_positions(MODEL_ROWS, MODEL_COLS)
+    truths = np.asarray(MODEL_SOURCES)
+    X = snapshots(np.exp(2j * np.pi * pos.astype(np.float64) @ truths.T), T, noise_amp)
+    uv, ax_t = uv_grid(MODEL_GRID, device=dev)
+    ax = ax_t.cpu().numpy()
+    R = sample_covariance(X)
+    A = steering_vectors(pos, uv)
+    got = dict(music=music_heatmap(X, pos, len(truths), MODEL_GRID).reshape(-1),
+               bartlett=bartlett_spectrum(R, A), mvdr=mvdr_spectrum(R, A))
+    want = reference_spectra(X.cpu().numpy(), pos, uv.cpu().numpy(), len(truths))
+    steering_err = float(np.abs(A.cpu().numpy() - want["A"]).max())
+    cov_rel_err = float(np.abs(R.cpu().numpy() - want["R"]).max() / np.abs(want["R"]).max())
+    if not (steering_err <= STEERING_ATOL and cov_rel_err <= COV_REL_BAR):
+        raise AssertionError(f"against float64: steering off by {steering_err}, covariance "
+                             f"by {cov_rel_err} of its largest entry")
+    spectra = {}
+    for name, P in got.items():
+        P = P.cpu().numpy()
+        err = db_error(P, want[name])
+        if not err <= SPECTRUM_DB_BAR:
+            raise AssertionError(f"{name} on the card off the float64 reference by {err} dB")
+        spectra[name] = dict(max_db_err=err, peaks=peaks_at(P.reshape(MODEL_GRID, MODEL_GRID),
+                                                            ax, truths, name))
+    out.update(sources_uv=truths.tolist(), snr_db=MODEL_SNR_DB, steering_max_abs_err=steering_err,
+               covariance_max_rel_err=cov_rel_err, spectra=spectra)
+
+    # ESPRIT and root-MUSIC on a 21-element ULA (host-side numpy on R).
+    n_ula = MODEL_ROWS * MODEL_COLS
+    thetas = np.asarray(ULA_THETAS)
+    Xu = snapshots(np.exp(2j * np.pi * 0.5 * np.arange(n_ula)[:, None] * np.sin(thetas)[None]),
+                   T, noise_amp)
+    Ru = sample_covariance(Xu, subtract_mean=False)
+    doas = {}
+    for name, fn in (("esprit", esprit_doa), ("root_music", root_music_doa)):
+        est = fn(Ru, len(thetas))
+        err = float(np.abs(est - np.sort(thetas)).max())
+        if not err <= DOA_ATOL_RAD:
+            raise AssertionError(f"{name}: {est} against {np.sort(thetas)} rad")
+        doas[name] = dict(rad=est.tolist(), max_abs_err_rad=err)
+    out.update(ula_n=n_ula, thetas_rad=thetas.tolist(), doa=doas)
+
+    # Co-array MUSIC: five sources on four sensors (tests/test_models.py:121).
+    sparse = np.asarray(COARRAY_SPARSE)
+    us = np.asarray(COARRAY_US)
+    Xs = snapshots(np.exp(2j * np.pi * 0.5 * sparse[:, :1] * us[None]), COARRAY_T, 0.03 * 2 ** 0.5)
+    Rs = sample_covariance(Xs, subtract_mean=False)
+    uv_c, ax_c = uv_grid(COARRAY_GRID, device=dev)
+    axc = ax_c.cpu().numpy()
+    Pc = coarray_music_spectrum(Rs, sparse, (7, 1), uv_c, len(us)).cpu().numpy()
+    u_profile = Pc.reshape(COARRAY_GRID, COARRAY_GRID).max(axis=0)
+    coarray_peaks = []
+    for u_true in us:
+        window = (axc > u_true - 0.08) & (axc < u_true + 0.08)
+        outside = ~((axc > u_true - 0.15) & (axc < u_true + 0.15))
+        u_pk = float(axc[window][int(np.argmax(u_profile[window]))])
+        if not (u_profile[window].max() > 3.0 * np.median(u_profile[outside])
+                and abs(u_pk - u_true) < 0.05):
+            raise AssertionError(f"co-array MUSIC: no peak at u = {u_true} (found {u_pk})")
+        coarray_peaks.append(u_pk)
+    # The lag averages twice, bit-equal: on the sparse array and on the URA
+    # as integer grid positions (441 sensor pairs).
+    ura_grid = np.rint(pos / 0.5).astype(np.int64)
+    lags_equal = {}
+    for name, RR, gp in (("sparse", Rs, sparse), ("ura", R, ura_grid)):
+        a, _ = coarray_covariance_lags(RR, gp)
+        b, _ = coarray_covariance_lags(RR, gp)
+        lags_equal[name] = bool(torch.equal(a, b))
+    if not all(lags_equal.values()):
+        raise AssertionError(f"co-array lags differ between two runs: {lags_equal}")
+    out["coarray"] = dict(sensors=len(sparse), sources=len(us), box=[7, 1],
+                          peaks_u=coarray_peaks, lags_bit_equal=lags_equal)
+
+    # Near-field: the emitter on a 32^3 grid point, found by MUSIC and ML.
+    n3 = (NEARFIELD_N,) * 3
+    grid = make_xyz_grid((0.0, 3.1), (0.0, 1.55), (2.0, 5.1), n3, device=dev)
+    k_true = int(np.ravel_multi_index(NEARFIELD_AT, n3))
+    xyz = grid[k_true].cpu().numpy().astype(np.float64)
+    p3 = np.concatenate([pos, np.zeros((len(pos), 1))], axis=-1).astype(np.float64)
+    d = np.linalg.norm(xyz[None] - p3, axis=-1)
+    Xn = snapshots(np.exp(-2j * np.pi * (d - d[0]))[:, None], T, noise_amp)
+    k_music = int(torch.argmax(nearfield_music(Xn, pos, grid)))
+    xyz_hat, spec = ml_localize(Xn, pos, grid)
+    if not (k_music == k_true and int(torch.argmax(spec)) == k_true
+            and torch.equal(xyz_hat, grid[k_true])):
+        raise AssertionError(f"near-field: MUSIC at {k_music}, ML at "
+                             f"{int(torch.argmax(spec))}, the emitter at {k_true}")
+    out["nearfield"] = dict(grid=list(n3), G=grid.shape[0], emitter_xyz=xyz.tolist(),
+                            music_index=k_music, ml_index=k_true)
+
+    # Each function timed on the card and on the CPU, on the same inputs.
+    cpu = torch.device("cpu")
+    ins = {d_: dict(X=X.to(d_), R=R.to(d_), A=A.to(d_), uv=uv.to(d_), Ru=Ru.to(d_),
+                    Rs=Rs.to(d_), uv_c=uv_c.to(d_), Xn=Xn.to(d_), grid=grid.to(d_))
+           for d_ in (dev, cpu)}
+    Rl = {d_: i["R"] + 1e-3 * i["R"].diagonal().sum().real / n_ula
+          * torch.eye(n_ula, dtype=i["R"].dtype, device=d_) for d_, i in ins.items()}
+    calls = {
+        "steering_vectors": lambda i, d_: steering_vectors(pos, i["uv"]),
+        "sample_covariance": lambda i, d_: sample_covariance(i["X"]),
+        "eigh": lambda i, d_: torch.linalg.eigh(i["R"]),
+        "music_spectrum": lambda i, d_: music_spectrum(i["R"], i["A"], len(truths)),
+        "bartlett_spectrum": lambda i, d_: bartlett_spectrum(i["R"], i["A"]),
+        "solve": lambda i, d_: torch.linalg.solve(Rl[d_], i["A"].T),
+        "mvdr_spectrum": lambda i, d_: mvdr_spectrum(i["R"], i["A"]),
+        "music_heatmap": lambda i, d_: music_heatmap(i["X"], pos, len(truths), MODEL_GRID),
+        "esprit_doa": lambda i, d_: esprit_doa(i["Ru"], len(thetas)),
+        "root_music_doa": lambda i, d_: root_music_doa(i["Ru"], len(thetas)),
+        "coarray_covariance_lags": lambda i, d_: coarray_covariance_lags(i["R"], ura_grid),
+        "coarray_music_spectrum": lambda i, d_: coarray_music_spectrum(
+            i["Rs"], sparse, (7, 1), i["uv_c"], len(us)),
+        "nearfield_music": lambda i, d_: nearfield_music(i["Xn"], pos, i["grid"]),
+        "ml_localize": lambda i, d_: ml_localize(i["Xn"], pos, i["grid"]),
+    }
+    ms = {}
+    for name, fn in calls.items():
+        card = lambda: fn(ins[dev], dev)
+        host = lambda: fn(ins[cpu], cpu)
+        card(), host()   # warm-up
+        card_runs = [cuda_ms(card) for _ in range(MODEL_RUNS)]
+        cpu_runs = [host_ms(host) for _ in range(MODEL_RUNS)]
+        ms[name] = dict(card=statistics.median(card_runs), cpu=statistics.median(cpu_runs))
+    out.update(ms=ms, seconds=time.perf_counter() - t_phase)
+    return out
+
+
+class LineReader:
+    """A thread reading a child's text stdout into a list of lines."""
+
+    def __init__(self, stream):
+        import threading
+
+        self.lines, self.last_at = [], time.time()
+        self._stream = stream
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for line in self._stream:
+            self.lines.append(line)
+            self.last_at = time.time()
+
+    @property
+    def text(self):
+        return "".join(self.lines)
+
+    def join(self):
+        self._thread.join(timeout=10)
+
+
+def wait_until(cond, seconds, proc):
+    deadline = time.time() + seconds
+    while time.time() < deadline and not cond() and proc.poll() is None:
+        time.sleep(0.05)
+    return cond()
+
+
+def phase_music_client(dev, k, cap):
+    """Phase 18 (b): the fused server (phase 16's capture and recipe, scan
+    depth 32) publishes through pyzmq on a free loopback port; once it is
+    21 / 21 synced, ``python3 -m coherent_rtlsdr_tpu_torch.apps.music_client
+    --follow`` runs on the card as a child process; once it has connected,
+    the server serves CLIENT_SERVE blocks; after CLIENT_ITERS heatmaps and
+    the last iteration's files the client is stopped. Returns the record
+    and the fused kernel launches."""
+    import re
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import zmq
+    from scipy.io import loadmat
+    from zmq.utils.monitor import recv_monitor_message
+
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.io.zmq_edge import FramePublisher
+    from coherent_rtlsdr_tpu_torch.models import (
+        music_spectrum,
+        sample_covariance,
+        steering_vectors,
+        ura_positions,
+        uv_grid,
+    )
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.signal.sources import FileSource
+
+    t_phase = time.perf_counter()
+    cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                         lag_method="phase_zoom")
+    data = f"tcp://127.0.0.1:{free_tcp_port()}"
+    pub = FramePublisher(data_addr=data, debug_addr=f"tcp://127.0.0.1:{free_tcp_port()}")
+    monitor = pub.data.get_monitor_socket(zmq.EVENT_HANDSHAKE_SUCCEEDED)
+    srv = CoherentServer(cfg, FileSource(cap), publisher=pub, control=QueueControl(),
+                         scan_depth=32, device=dev)
+    tmp = tempfile.mkdtemp(prefix="music_client_")
+    npy, mat = os.path.join(tmp, "heatmap.npy"), os.path.join(tmp, "heatmap.mat")
+    err = open(os.path.join(tmp, "client.err"), "w+")
+    proc = reader = None
+    try:
+        k.reset_counts()
+        if srv.run(max_blocks=SERVER_WARM) != SERVER_WARM:
+            raise AssertionError("music client's server: warm-up published too few frames")
+        status = synced_line(srv, N_CH, "music client's server")
+        t_start = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "coherent_rtlsdr_tpu_torch.apps.music_client", "-a", data,
+             "--follow", "--frames", str(MODEL_FRAMES), "--rows", str(MODEL_ROWS), "--cols",
+             str(MODEL_COLS), "--grid", str(MODEL_GRID), "-o", npy, "--mat", mat,
+             "--timeout-ms", "120000"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        reader = LineReader(proc.stdout)
+        if not monitor.poll(120_000):
+            raise AssertionError("the music client never connected")
+        recv_monitor_message(monitor)
+        connect_s = time.perf_counter() - t_start
+        time.sleep(0.5)   # its subscription reaches the publisher
+        t0 = time.perf_counter()
+        served = srv.run(max_blocks=CLIENT_SERVE)
+        serve_s = time.perf_counter() - t0
+        counts = k.counts()
+        done = wait_until(lambda: f"[{CLIENT_ITERS - 1}] music spectrum" in reader.text, 120, proc)
+        # The client then rests in its receive, the last iteration's files
+        # written (the .mat after the .npy).
+        settled = done and wait_until(
+            lambda: (time.time() - reader.last_at > 1.5 and os.path.exists(mat)
+                     and os.path.getmtime(mat) >= os.path.getmtime(npy)), 60, proc)
+        alive = proc.poll() is None
+        if not (served == CLIENT_SERVE and done and settled and alive):
+            err.seek(0)
+            raise AssertionError(f"music client: served {served}, iterations done {done}, "
+                                 f"settled {settled}, alive {alive}; stdout "
+                                 f"{reader.text[-1500:]!r}; stderr {err.read()[-3000:]!r}")
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        if reader is not None:
+            reader.join()
+        err.close()
+        pub.data.disable_monitor()
+        monitor.close(0)
+        pub.close()
+    launched_only_kernels(counts, SERVER_WARM + CLIENT_SERVE, "music client's server")
+    try:
+        P = np.load(npy)
+        m = loadmat(mat)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x = m["x"]   # [T, 21] complex64: heatmap2d2's matsave layout
+    if not (np.array_equal(m["P"], P) and x.shape == (MODEL_FRAMES * L, N_CH)
+            and x.dtype == np.complex64 and P.shape == (MODEL_GRID, MODEL_GRID)):
+        raise AssertionError(f"music client's files: P {P.shape}, x {x.shape} {x.dtype}, "
+                             f"P in the .mat equal: {np.array_equal(m['P'], P)}")
+    # Every aligned channel carries the reference noise in phase with
+    # channel 0: one source at broadside.
+    uv_cpu, ax_t = uv_grid(MODEL_GRID, device="cpu")
+    ax = ax_t.numpy()
+    step = float(ax[1] - ax[0])
+    i = int(P.argmax())
+    peak = (float(ax[i % MODEL_GRID]), float(ax[i // MODEL_GRID]))
+    if not (abs(peak[0]) <= step and abs(peak[1]) <= step):
+        raise AssertionError(f"music client: peak at {peak}, not at broadside")
+    # The same spectrum recomputed at device="cpu" on the .mat file's x.
+    want = music_spectrum(sample_covariance(torch.from_numpy(np.ascontiguousarray(x.T))),
+                          steering_vectors(ura_positions(MODEL_ROWS, MODEL_COLS), uv_cpu),
+                          1).numpy().reshape(MODEL_GRID, MODEL_GRID)
+    err_db = db_error(P, want)
+    if not err_db <= SPECTRUM_DB_BAR:
+        raise AssertionError(f"music client's spectrum off its CPU recomputation by {err_db} dB")
+    its = [float(v) for v in re.findall(r"\] music spectrum ([\d.]+) ms on cuda", reader.text)]
+    printed = re.findall(r"\[(\d+)\] peak at \(u, v\) = \(([-+.\d]+), ([-+.\d]+)\)", reader.text)
+    return dict(address=data, status=status, client_connect_s=connect_s,
+                served_blocks=served, serve_s=serve_s,
+                server_frames_per_s=served / serve_s,
+                server_samples_per_s=served * N_CH * L / serve_s,
+                launches=counts, iterations=len(its),
+                client_heatmap_ms=its, client_heatmap_ms_first=its[0],
+                client_heatmap_ms_median_after_first=statistics.median(its[1:]),
+                last_printed_peak=[int(printed[-1][0]), float(printed[-1][1]),
+                                   float(printed[-1][2])],
+                peak_uv=peak, grid_step=step, max_db_err_vs_cpu=err_db,
+                seconds=time.perf_counter() - t_phase), counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -1778,10 +2225,17 @@ def main():
     # file / ZMQ / librtlsdr producers, native publisher) feeding the fused
     # server.
     counts_ring = phase_ring_server(dev, smi, k, cap16, want16)
-    del cap16, want16
+    del want16
+
+    # 18. The array models at the production array, and the MUSIC client
+    # app on the card fed by the fused server over ZMQ.
+    rec18 = phase_models(dev)
+    rec18_client, counts_music = phase_music_client(dev, k, cap16)
+    del cap16
+    emit(dict(phase="models", card=smi, models=rec18, music_client=rec18_client))
 
     # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15,
-    # 16 and 17 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
+    # 16, 17 and 18 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
     # float kernels; 15 for the copy). max_abs_err: the largest
     # kernel-vs-plain difference seen (R for the reference kernel, lag in
     # samples for the i8 measure kernels, wire LSB for the i8 applies,
@@ -1791,7 +2245,7 @@ def main():
     # time under torch.profiler (phase 7 for the handoff apply, 13 for the
     # float pair). bound_ms, bound_by: tools/cost_model.py at those shapes.
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
-                + counts_server[c] + counts_ring[c] for c in counts_offline}
+                + counts_server[c] + counts_ring[c] + counts_music[c] for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
     m = round((2 * L) ** 0.5)
     shape = (T_OFFLINE, N_CH, m)

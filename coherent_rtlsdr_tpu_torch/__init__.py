@@ -13,6 +13,10 @@ runs on CPU tensors:
   four-step FFT kernel behind "pallas", and ``FusedSpectral`` over the float
   measure/apply kernels.
 
+Downstream of the aligned frames, the array models (MUSIC, Bartlett,
+MVDR, ESPRIT, root-MUSIC, co-array and near-field localization) run on
+``torch.linalg`` and batched products.
+
 Every entry point runs on the card unless the caller passes CPU tensors or
 ``device="cpu"``.
 
@@ -26,7 +30,10 @@ io         the streaming server and its host edge (wire, console, ZMQ,
            client, drift relief)
 native     the C++ host runtime (block ring, file / ZMQ / librtlsdr capture
            threads, packetizer and publisher), built with g++ at first use
-apps       the server, the offline aligner and the capture daemon
+models     array geometries, steering, covariance, DOA spectra, co-array
+           and near-field localization
+apps       the server, the offline aligner, the capture daemon and the
+           MUSIC heatmap client
 
 The package imports torch and numpy, and nothing of JAX or of the JAX
 package.

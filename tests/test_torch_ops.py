@@ -210,7 +210,9 @@ def test_import_loads_no_jax():
             "coherent_rtlsdr_tpu_torch.io.hwcontrol, coherent_rtlsdr_tpu_torch.io.client, "
             "coherent_rtlsdr_tpu_torch.apps.coherent_server, "
             "coherent_rtlsdr_tpu_torch.apps.align_offline, "
-            "coherent_rtlsdr_tpu_torch.apps.capture_daemon; "
+            "coherent_rtlsdr_tpu_torch.apps.capture_daemon, "
+            "coherent_rtlsdr_tpu_torch.models, coherent_rtlsdr_tpu_torch.models.localize, "
+            "coherent_rtlsdr_tpu_torch.apps.music_client; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'coherent_rtlsdr_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

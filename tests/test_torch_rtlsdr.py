@@ -301,8 +301,15 @@ class TestConsoleInventory:
 class TestPerChannelSeqnums:
     def test_fast_device_gaps_only_its_channel(self, call_log, monkeypatch):
         monkeypatch.setenv("MOCK_RTLSDR_FAST", "2")   # MOCK0002 streams 10x faster
-        ring = native.NativeBlockRing(64, 3 * CHAN_BYTES, n_seq=3)
-        cap = _start(ring, ["MOCKREF0", "MOCK0001", "MOCK0002"], asyncbufn=2)
+        # Every dongle gets the same FIFO of 2 * asyncbufn channel-blocks. At 2
+        # (4 blocks, 8 ms at 500 blocks/s) the two slow dongles' threads drift
+        # apart by more than that under CPU contention, and the leading one's
+        # FIFO overflows too: a gap on channel 0 or 1. The default 8 (16
+        # blocks, 32 ms) absorbs that drift, and the fast dongle, 9 blocks
+        # ahead every frame, still overflows within a few frames. 256 ring
+        # slots (0.5 s) keep a starved consumer from gapping every channel.
+        ring = native.NativeBlockRing(256, 3 * CHAN_BYTES, n_seq=3)
+        cap = _start(ring, ["MOCKREF0", "MOCK0001", "MOCK0002"], asyncbufn=8)
         frames = []
         try:
             deadline = time.time() + 60
