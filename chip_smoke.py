@@ -130,12 +130,33 @@ app, fed by the fused server:
      spectrum recomputed at device="cpu" on the saved snapshots, and the
      client's spectrum ms an iteration beside the server's frame rate.
 
-Every phase prints one JSON line; a failed check raises, so the exit code is
-not 0. Before the last line it prints the ptxas report of every kernel
-(registers, stack, spills; the fourteen tensor-core instantiations of the
-measure and apply kernels, eight measure and six apply, must use no stack
-and spill nothing), the card's name and power limit
-and a JSON summary of the nine kernels (times, launches, errors, and the
+The fused main path at L = 32768 (m = 256, W = 65536), where each window
+runs on a cluster of four CTAs (``csrc/fused_cluster.cuh``):
+
+ 19. (a) ``fused_measure_ref``, ``fused_measure_i8_spec``,
+     ``fused_measure_i8`` and ``fused_apply_spec_i8`` against their plain
+     versions at N = 21, T = 5, on random and correlated bytes (phase 2's
+     bars), and the entries still to be ported at m = 256 (kernel table
+     rows 4-7: ``apply_i8``, the four-step, the float pair) raising on the
+     card; (b) ``align_offline`` at T = 64 (1,323 windows, the sample count
+     of phase 3): 1 + 1 + 1 launches a call, no plain run, samples/s over 7
+     runs against 43.0e6, and the recompute measure on the same bytes, its
+     scalars equal to the handoff's; (c) quality against synthetic truth
+     by phase 4's bars; (d) each kernel against its plain version at (b)'s
+     shapes, timed in turns and twice in one torch.profiler run; (e) a capture
+     rendered on the card (762 blocks) served by ``FileSource`` to the
+     fused server at scan depth 1 and 32, by phase 16's checks: samples/s
+     (median of 3 windows; depth 32 must keep real time), the host parts,
+     21 / 21, the frame bars, bit-equal to the packed runner, one launch of
+     each kernel a block.
+
+Every phase prints one JSON line (phase 19 one a part); a failed check
+raises, so the exit code is not 0. Before the last line it prints the
+ptxas report of every kernel (registers, stack, spills; the eighteen
+tensor-core instantiations of the measure and apply kernels, eleven
+measure and seven apply, must use no stack and spill nothing), the card's
+name and power limit and a JSON summary of thirteen kernel entries, the
+nine kernels and the four m = 256 ones (times, launches, errors, and the
 bound from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and
 bf16 operations over 989 TFLOP/s); the last line is ``{"ok": true,
 "device": {...}}``. Needs a CUDA device and the repository's package next
@@ -652,10 +673,11 @@ class QueueControl:
         return n
 
 
-def render_capture(n_blocks, dev, seed=11):
-    """A continuous synthetic capture rendered on the card slab by slab
-    (``synth_stream_slab``: max delay 40, SNR 30 dB, ppm 0) and kept in
-    host memory, its seqnums counting from 1: (Capture, truth)."""
+def render_capture(n_blocks, dev, seed=11, block_len=L):
+    """A continuous synthetic capture of ``block_len`` samples a block,
+    rendered on the card slab by slab (``synth_stream_slab``: max delay 40,
+    SNR 30 dB, ppm 0) and kept in host memory, its seqnums counting from 1:
+    (Capture, truth)."""
     import numpy as np
 
     from coherent_rtlsdr_tpu_torch.io.streamio import Capture
@@ -664,10 +686,10 @@ def render_capture(n_blocks, dev, seed=11):
     truth = make_truth(N_CH, seed=seed, max_delay=40.0, snr_db=30.0)
     n_slabs = -(-n_blocks // SERVER_SLAB)
     T = n_slabs * SERVER_SLAB
-    sig = np.empty((T, N_CH, L, 2), np.uint8)
-    ref = np.empty((T, L, 2), np.uint8)
+    sig = np.empty((T, N_CH, block_len, 2), np.uint8)
+    ref = np.empty((T, block_len, 2), np.uint8)
     for i in range(n_slabs):
-        s, r = synth_stream_slab(seed, truth, i, SERVER_SLAB, L, device=dev)
+        s, r = synth_stream_slab(seed, truth, i, SERVER_SLAB, block_len, device=dev)
         sig[i * SERVER_SLAB:(i + 1) * SERVER_SLAB] = s.cpu().numpy()
         ref[i * SERVER_SLAB:(i + 1) * SERVER_SLAB] = r.cpu().numpy()
     seqnums = np.tile(np.arange(1, T + 1, dtype=np.uint32)[:, None], (1, N_CH))
@@ -684,9 +706,9 @@ def sub_capture(cap, start, stop, restart_seqnums=False):
                    fs=cap.fs, fcenter=cap.fcenter)
 
 
-def check_frames(bufs, n, where):
-    """Every frame is (n + 1) x L int8 IQ, and each channel against channel
-    0 peaks at lag 0 with corr >= FRAME_CORR_MIN and |phase| <
+def check_frames(bufs, n, where, block_len=L):
+    """Every frame is (n + 1) x block_len int8 IQ, and each channel against
+    channel 0 peaks at lag 0 with corr >= FRAME_CORR_MIN and |phase| <
     FRAME_PHASE_MAX_DEG. Returns the worst corr and phase."""
     import numpy as np
 
@@ -695,7 +717,7 @@ def check_frames(bufs, n, where):
     corr_min, phase_max = 1.0, 0.0
     for buf in bufs:
         f = unpack_frame(buf)
-        if not (f.iq.shape == (n + 1, L, 2) and f.iq.dtype == np.int8):
+        if not (f.iq.shape == (n + 1, block_len, 2) and f.iq.dtype == np.int8):
             raise AssertionError(f"{where}: frame of shape {f.iq.shape}, {f.iq.dtype}")
         x = f.iq[..., 0].astype(np.float64) + 1j * f.iq[..., 1]
         X = np.fft.fft(x, axis=-1)
@@ -727,7 +749,8 @@ def contiguous(seqs, first, where):
 
 def runner_frames(cfg, cap, n_blocks, dev):
     """The packed scan runner on the capture's first blocks from the initial
-    state, K = 32 a call: the frames as [T, N + 1, L, 2] int8 (ref first)."""
+    state, K = 32 a call: the frames as [T, N + 1, L, 2] int8 (ref first),
+    L = cfg.block_len."""
     import numpy as np
 
     from coherent_rtlsdr_tpu_torch.pipeline import init_state, make_packed_scan_runner
@@ -736,14 +759,15 @@ def runner_frames(cfg, cap, n_blocks, dev):
     run = make_packed_scan_runner(cfg)
     pstate = pack_state(init_state(cfg, dev))
     gate = torch.tensor(True, device=dev)
+    n, bl = cfg.n_channels, cfg.block_len
     out = []
     for c in range(0, n_blocks, K_STREAM):
         blk = slice(c, c + K_STREAM)
-        sigs = torch.from_numpy(cap.sig_u8[blk]).to(dev).reshape(-1, N_CH, 2 * L)
-        refs = torch.from_numpy(cap.ref_u8[blk]).to(dev).reshape(-1, 2 * L)
+        sigs = torch.from_numpy(cap.sig_u8[blk]).to(dev).reshape(-1, n, 2 * bl)
+        refs = torch.from_numpy(cap.ref_u8[blk]).to(dev).reshape(-1, 2 * bl)
         seqs = torch.from_numpy(cap.seqnums[blk].astype(np.int64)).to(dev)
         pstate, (wire, wire_ref), _ = run(pstate, sigs, refs, gate, seqs)
-        out.append(torch.cat([wire_ref.reshape(-1, 1, L, 2), wire.reshape(-1, N_CH, L, 2)],
+        out.append(torch.cat([wire_ref.reshape(-1, 1, bl, 2), wire.reshape(-1, n, bl, 2)],
                              dim=1).cpu().numpy())
     return np.concatenate(out)
 
@@ -757,10 +781,10 @@ def bit_equal(bufs, want, where):
     return len(bufs)
 
 
-def timed_server(cfg, cap, scan_depth, k, dev):
+def timed_server(cfg, cap, scan_depth, k, dev, window=SERVER_WINDOW):
     """A server at ``scan_depth`` on the capture from its start: a warm-up
-    run, then SERVER_WINDOWS timed runs. Returns (server, publisher, wall
-    seconds and frames of each window, launch counts of all its runs)."""
+    run, then SERVER_WINDOWS timed runs of ``window[scan_depth]`` blocks.
+    Returns (server, publisher, wall seconds and frames of each window)."""
     from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
     from coherent_rtlsdr_tpu_torch.signal.sources import FileSource
 
@@ -774,7 +798,7 @@ def timed_server(cfg, cap, scan_depth, k, dev):
     for _ in range(SERVER_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        n = srv.run(max_blocks=SERVER_WINDOW[scan_depth])
+        n = srv.run(max_blocks=window[scan_depth])
         windows.append((time.perf_counter() - t0, n))
     return srv, pub, windows
 
@@ -1809,6 +1833,259 @@ def phase_music_client(dev, k, cap):
                 seconds=time.perf_counter() - t_phase), counts
 
 
+# Phase 19: the fused main path at L = 32768 (m = 256, W = 65536), N = 21,
+# where a window runs on a cluster of four CTAs.
+L19, M19 = 32768, 256
+T19 = 64                             # align_offline blocks: 1,323 windows a call
+SERVER19_WINDOW = {1: 64, 32: 128}   # blocks a timed window, by scan depth
+
+
+def phase19_kernels(dev, k):
+    """Phase 19 (a): the four m = 256 kernels against their plain versions
+    at N = 21, T = 5 on random and correlated bytes, by phase 2's bars
+    (fused_measure_i8 held alone on the reference kernel's R, as
+    hold_measure holds fused_measure_i8_spec); then the entries of kernel
+    table rows 4-7, still to be ported at m = 256, raising on the card with
+    nothing launched."""
+    from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel
+
+    out = []
+    g = torch.Generator(device=dev).manual_seed(M19)
+    for kind, (raw, ref_raw) in small_blocks(M19, g, dev).items():
+        where = f"m=256 {kind}"
+        errs, want = hold_measure(k, raw, ref_raw, where)
+        R, eref = k.measure_ref(ref_raw)
+        lag_err, rel = compare_measure(fused_cuda.measure_i8(k, raw, R, eref),
+                                       k.measure_i8_plain(raw, R, eref), where + " measure_i8")
+        errs.update(measure_i8_lag_max_abs_err=lag_err, measure_i8_rel_err=rel)
+        adv = (torch.rand((4, N_CH), generator=g, device=dev) - 0.5) * 80.0
+        adv[0, 0], adv[0, 1] = -1500.25, 1023.5
+        ph = torch.rand((4, N_CH), generator=g, device=dev) * 6.283185307179586
+        errs.update(hold_apply(k, (want[5], want[6], adv, torch.cos(ph), torch.sin(ph)), where))
+        out.append(dict(m=M19, N=N_CH, T=5, inputs=kind, **errs))
+    fk = FFT4StepKernel(M19 * M19, dev)
+    raw = torch.zeros((5, N_CH, M19 // 2, 2 * M19), dtype=torch.int8, device=dev)
+    one = torch.zeros((4, N_CH), device=dev)
+    planes = torch.zeros((5, N_CH, M19 // 2, M19), dtype=torch.bfloat16, device=dev)
+    spec = torch.zeros((4, M19, M19), dtype=torch.bfloat16, device=dev)
+    x = torch.zeros((4, M19 * M19), dtype=torch.complex64, device=dev)
+    calls = {4: lambda: k.apply_i8(raw, one, one, one), 5: lambda: fk.fft(x),
+             6: lambda: k.measure(planes, planes, spec, spec),
+             7: lambda: k.apply(planes, planes, one)}
+    k.reset_counts()
+    raised = {}
+    for row, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if f"row {row}" not in str(e):
+                raise AssertionError(f"row {row} at m = 256 raised without its row: {e}") from e
+            raised[f"row {row}"] = str(e)
+        else:
+            raise AssertionError(f"kernel table row {row} ran at m = 256")
+    torch.cuda.synchronize()
+    if any(k.counts().values()) or any(fk.counts().values()):
+        raise AssertionError(f"rows 4-7 at m = 256 ran something: {k.counts()}, {fk.counts()}")
+    return out, raised
+
+
+def phase19_server(dev, smi, cfg, k):
+    """Phase 19 (e): a capture rendered by render_capture's recipe at
+    L = 32768, served by FileSource to the fused server at scan depth 1 and
+    32: samples/s over 3 timed windows (median), one more window with the
+    host parts timed, at depth 32 one run under torch.profiler; 21 / 21
+    synced, contiguous ref seqnums, phase 16's frame bars on the last 16
+    frames, the first frames bit-equal to the packed runner's on the same
+    bytes, one launch of each kernel a block and no plain run. Returns
+    (the record, the launches of all its runs)."""
+    need = 2 * SERVER_WARM + (SERVER_WINDOWS + 1) * SERVER19_WINDOW[32]
+    t0 = time.perf_counter()
+    cap, _ = render_capture(need, dev, block_len=L19)
+    render_s = time.perf_counter() - t0
+    want = runner_frames(cfg, cap, SERVER_WARM, dev)
+    launches = dict.fromkeys(k.counts(), 0)
+    out = dict(capture_blocks=cap.n_blocks, render_s=render_s)
+    for depth in (1, 32):
+        where = f"server L=32768 K={depth}"
+        srv, pub, windows = timed_server(cfg, cap, depth, k, dev, window=SERVER19_WINDOW)
+        rates = [n * N_CH * L19 / sec for sec, n in windows]
+        rec = dict(window_blocks=SERVER19_WINDOW[depth], window_s=[sec for sec, _ in windows],
+                   samples_per_s=rates, samples_per_s_median=statistics.median(rates),
+                   realtime=statistics.median(rates) >= REALTIME_SAMPLES_S,
+                   status=synced_line(srv, N_CH, where),
+                   host_ms_per_block=host_breakdown(srv, SERVER19_WINDOW[depth]))
+        served = SERVER_WARM + sum(n for _, n in windows) + SERVER19_WINDOW[depth]
+        if depth == 32:
+            prof = device_profile(lambda: srv.run(max_blocks=SERVER_WARM))
+            served += SERVER_WARM
+            rec["profile"] = {key: prof[key] for key in
+                              ("wall_ms", "device_busy_ms", "idle_share", "top_ms",
+                               "fused_kernel_ms")}
+        counts = k.counts()
+        launched_only_kernels(counts, served, where)
+        for name, v in counts.items():
+            launches[name] += v
+        contiguous(pub.ref_seqs, 1, where)
+        rec.update(blocks_served=served, launches=counts,
+                   frames=check_frames(pub.last, N_CH, where, block_len=L19),
+                   bit_equal_to_runner=bit_equal(pub.first, want, where))
+        out[f"scan_depth_{depth}"] = rec
+    if not out["scan_depth_32"]["realtime"]:
+        raise AssertionError(f"server L=32768 K=32 below real time: "
+                             f"{out['scan_depth_32']['samples_per_s']}")
+    return out, launches
+
+
+def phase_l32768(dev, smi):
+    """Phase 19: the fused main path at L = 32768 (m = 256), N = 21, through
+    the four cluster kernels: (a) each against its plain version, rows 4-7
+    raising; (b) align_offline at T = 64 (1,323 windows), 1 + 1 + 1 launches
+    a call and no plain run, samples/s over 7 runs against 43.0e6, and the
+    recompute measure (measure_ref, then fused_measure_i8) on the same
+    bytes, its scalars equal to the handoff's; (c) quality against
+    synthetic truth by phase 4's bars; (d) each kernel against its plain
+    version at (b)'s shapes, timed in turns (phase 6's scheme), and two
+    calls of each under torch.profiler; (e) the server (phase19_server). Each part emits
+    one line. Returns the data of the kernels line's four m = 256
+    entries."""
+    from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+    from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(n_channels=N_CH, block_len=L19, fft_impl="fused",
+                         lag_method="phase_zoom")
+    k = get_fused_kernels(2 * L19, dev)
+    base = dict(phase="l32768", card=smi, N=N_CH, L=L19, m=M19)
+
+    # (a)
+    results, raised = phase19_kernels(dev, k)
+    emit(dict(base, part="kernel_vs_plain", results=results, unported_raise=raised))
+
+    # (b)
+    raw, ref_raw, cap = synth_raw(T19, L19, N_CH, seed=19, dev=dev)
+    sig_u8 = cap.sig_u8.reshape(T19, N_CH, 2 * L19)
+    ref_u8 = cap.ref_u8.reshape(T19, 2 * L19)
+    offline_run(cfg, sig_u8, ref_u8)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = None
+
+    def drive_offline():
+        nonlocal res
+        res = offline_run(cfg, sig_u8, ref_u8)
+
+    k.reset_counts()
+    ms_runs = [cuda_ms(drive_offline) for _ in range(7)]
+    counts_offline = k.counts()
+    launched_only_kernels(counts_offline, 7, "offline L=32768")
+    ms_offline = statistics.median(ms_runs)
+    rate = (T19 - 1) * N_CH * L19 / ms_offline * 1e3
+    truth_err = float(abs(res.delay[0].cpu().numpy() - cap.truth.delays).max())
+    if not (tuple(res.wire.shape) == (T19 - 1, N_CH, 2 * L19)
+            and torch.isfinite(res.lag).all() and truth_err < 0.05
+            and res.mag.min().item() > 0.5 and rate >= REALTIME_SAMPLES_S):
+        raise AssertionError(f"offline L=32768: {rate} samples/s, max |delay - truth| "
+                             f"{truth_err}, min mag {res.mag.min().item()}")
+    k.reset_counts()
+    rec = k.measure_i8(raw, ref_raw)
+    torch.cuda.synchronize()
+    counts_rec = k.counts()
+    launched_only(counts_rec, dict(measure_ref_launches=1, measure_i8_launches=1),
+                  "recompute measure L=32768")
+    spec = k.measure_i8_spec(raw, ref_raw)
+    rec_vs_spec = {}
+    for name, a, b in zip(("lag", "z_re", "z_im", "mag", "papr"), rec, spec):
+        err = (a - b).abs()
+        rec_vs_spec[f"{name}_max_abs_diff"] = err.max().item()
+        if not (err <= HANDOFF_SCALAR_TOL * (1 + b.abs())).all():
+            raise AssertionError(f"recompute measure L=32768: {name} off the handoff's by "
+                                 f"{err.max().item()}")
+    del rec, spec
+    emit(dict(base, part="offline", T=T19, smoothing="global", ms_median=ms_offline,
+              ms_runs=ms_runs, samples_per_s=rate, realtime_x=rate / REALTIME_SAMPLES_S,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              max_abs_delay_minus_truth=truth_err, launches=counts_offline,
+              recompute_measure=dict(launches=counts_rec, vs_handoff=rec_vs_spec)))
+
+    # (c)
+    _, _, q_cap = synth_raw(16, L19, N_CH, seed=7, dev=dev)
+    q = offline_run(cfg, q_cap.sig_u8.reshape(16, N_CH, 2 * L19),
+                    q_cap.ref_u8.reshape(16, 2 * L19))
+    z = (q.aligned * q.ref.conj()[:, None, :]).sum(-1)
+    errs_deg = torch.rad2deg(torch.angle(z))[2:].double()
+    phase_rms = errs_deg.pow(2).mean().sqrt().item()
+    lag_err = q.delay[2:].double().cpu() - torch.from_numpy(q_cap.truth.delays).double()[None]
+    lag_rms = lag_err.pow(2).mean().sqrt().item()
+    emit(dict(base, part="quality", T=16, phase_err_deg_rms=phase_rms,
+              residual_lag_rms_samples=lag_rms, bars=[PHASE_ERR_DEG, LAG_ERR_SAMPLES]))
+    if not (phase_rms <= PHASE_ERR_DEG and lag_rms <= LAG_ERR_SAMPLES):
+        raise AssertionError(f"quality L=32768: {phase_rms} deg, {lag_rms} samples")
+    del q, z
+
+    # (d)
+    errs, want = hold_measure(k, raw, ref_raw, "m=256 offline shapes")
+    adv = res.delay.contiguous()
+    pre, pim = res.phase.real.contiguous(), res.phase.imag.contiguous()
+    errs.update(hold_apply(k, (want[5], want[6], adv, pre, pim), "m=256 offline shapes"))
+    del want
+    R, eref = k.measure_ref(ref_raw)
+    errs["measure_i8_lag_max_abs_err"], _ = compare_measure(
+        fused_cuda.measure_i8(k, raw, R, eref), k.measure_i8_plain(raw, R, eref),
+        "m=256 offline shapes measure_i8")
+    meas = k.measure_spec(raw, R, eref)
+    fns = {
+        "measure_ref": lambda: k.measure_ref(ref_raw),
+        "measure_ref_plain": lambda: k.measure_ref_plain(ref_raw),
+        "measure": lambda: k.measure_spec(raw, R, eref),
+        "measure_plain": lambda: k.measure_spec_plain(raw, R, eref),
+        "measure_i8": lambda: fused_cuda.measure_i8(k, raw, R, eref),
+        "measure_i8_plain": lambda: k.measure_i8_plain(raw, R, eref),
+        "apply": lambda: k.apply_spec_i8(meas[5], meas[6], adv, pre, pim),
+        "apply_plain": lambda: k.apply_spec_i8_plain(meas[5], meas[6], adv, pre, pim),
+    }
+    ms, runs = timed_interleaved(fns, ("measure_ref", "measure", "measure_i8", "apply"),
+                                 ("_plain", ""))
+    # Device times from one profiled run of two calls of each kernel, None
+    # where the profiler shows no such kernel. The run opens with ~4 ms of
+    # sleep kernels: here, late in this script, the first kernels of a
+    # profiled run went unrecorded (on the H100: four one-kernel runs came
+    # back empty, and a run of eight calls lost its first three).
+    def profiled():
+        for _ in range(8):
+            torch.cuda._sleep(1_000_000)
+        for name in ("measure_ref", "measure", "measure_i8", "apply"):
+            for _ in range(2):
+                fns[name]()
+
+    prof = device_profile(profiled)["fused_kernel_ms"]
+    kernel_names = {"measure_ref": "fused::measure_ref_cluster_kernel",
+                    "measure": "fused::measure_cluster_kernel<true>",
+                    "measure_i8": "fused::measure_cluster_kernel<false>",
+                    "apply": "fused::apply_spec_cluster_kernel"}
+    device_ms = {name: prof[kn] / 2 if kn in prof else None
+                 for name, kn in kernel_names.items()}
+    emit(dict(base, part="kernel_times", T=T19, ms=ms, runs=runs, device_ms=device_ms,
+              kernel_vs_plain=errs))
+    del meas, R, eref, res, raw, ref_raw, cap, sig_u8, ref_u8
+
+    # (e)
+    rec_e, counts_server = phase19_server(dev, smi, cfg, k)
+    emit(dict(base, part="server", fft_impl="fused", **rec_e))
+
+    launches = {name: counts_offline[name] + counts_rec[name] + counts_server[name]
+                for name in counts_offline}
+    for name in ("measure_ref", "measure_spec", "measure_i8", "apply_spec_i8"):
+        if not launches[f"{name}_launches"] > 0:
+            raise AssertionError(f"phase 19: {name} at m = 256 was never launched on the path")
+    worst = lambda key: max(max(r[key] for r in results), errs[key])
+    return dict(launches=launches, ms=ms, device_ms=device_ms,
+                err=dict(measure_ref=worst("R_max_abs_err"),
+                         measure=worst("lag_max_abs_err"),
+                         measure_i8=worst("measure_i8_lag_max_abs_err"),
+                         apply=worst("wire_max_lsb")))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -2234,6 +2511,10 @@ def main():
     del cap16
     emit(dict(phase="models", card=smi, models=rec18, music_client=rec18_client))
 
+    # 19. The fused main path at L = 32768 (m = 256): the four cluster
+    # kernels, the offline engine, quality and the server.
+    p19 = phase_l32768(dev, smi)
+
     # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15,
     # 16, 17 and 18 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
     # float kernels; 15 for the copy). max_abs_err: the largest
@@ -2244,6 +2525,9 @@ def main():
     # the offline shapes (phases 6, 13, 14 and 15). device_ms: the kernel's
     # time under torch.profiler (phase 7 for the handoff apply, 13 for the
     # float pair). bound_ms, bound_by: tools/cost_model.py at those shapes.
+    # The four "@256" entries: phase 19 alone (launches from (b), its
+    # recompute measure and (e); errors from (a) and (d); ms, plain_ms and
+    # device_ms from (d) at T = 64, N = 21, L = 32768).
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
                 + counts_server[c] + counts_ring[c] + counts_music[c] for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
@@ -2262,7 +2546,7 @@ def main():
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"] + counts_gserver["fft_launches"]
                          + counts_gserver["ifft_launches"])
-    # Registers, stack and spills of every kernel; the fourteen tensor-core
+    # Registers, stack and spills of every kernel; the eighteen tensor-core
     # instantiations (measure and apply) must use no stack and spill nothing.
     ptxas = {src: fused_cuda.ptxas_usage(report[src]) for src in fused_cuda.SOURCES}
     emit(dict(phase="ptxas", **ptxas))
@@ -2308,6 +2592,18 @@ def main():
         entry("copy_blocks", "probe_copy.cu", "tools/probe_roofline.py:68",
               cost_model.copy_blocks(*shape), counts_probe["copy_launches"], 0,
               ms15["copy"], ms15["copy_plain"], ms15["copy_lib"]),
+        *[entry(f"{name}@256", source, tpu + f"pallas_fused.py:{line}", cost,
+                p19["launches"][f"{count}_launches"], p19["err"][base], p19["ms"][base],
+                p19["ms"][base + "_plain"], device_ms=p19["device_ms"][base])
+          for name, source, line, cost, count, base in (
+              ("fused_measure_ref", "fused_measure.cu", 356,
+               cost_model.measure_ref(T19, M19), "measure_ref", "measure_ref"),
+              ("fused_measure_i8_spec", "fused_measure.cu", 338,
+               cost_model.measure_i8_spec(T19, N_CH, M19), "measure_spec", "measure"),
+              ("fused_measure_i8", "fused_measure.cu", 279,
+               cost_model.measure_i8(T19, N_CH, M19), "measure_i8", "measure_i8"),
+              ("fused_apply_spec_i8", "fused_apply.cu", 392,
+               cost_model.apply_spec_i8(T19, N_CH, M19), "apply_spec_i8", "apply"))],
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

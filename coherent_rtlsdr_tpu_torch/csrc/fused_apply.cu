@@ -55,7 +55,18 @@
 //     staging tiles (8 kB) for the wire.
 // The load has no overlap with the products in the one-CTA kernels; the
 // persistent grid with producer warps is the model for that.
+//
+// m = 256 (W = 65536): apply_spec_cluster_kernel runs a window on a
+// cluster of four CTAs of 16 warps (fused_cluster.cuh), the mirror of the
+// measure's forward: CTA p weights row block p of D into G, computes row
+// block p of B2 = bf16((G Fi) * conj(T)), and after a cluster exchange the
+// centre rows of y = Fi B2 on strip p, 128 bytes of each wire row. Shared
+// memory 131,072 bytes: X (G, then the gathered strip of B2) and Y (B2's
+// row block, which the other CTAs gather). Fi comes from L2 as the
+// products' table operand. fused_apply_i8 and fused_apply_planes still
+// take m in {64, 128}.
 
+#include "fused_cluster.cuh"
 #include "fused_common.cuh"
 
 namespace fused {
@@ -381,12 +392,119 @@ int launch_planes(const void* pre, const void* pim, const void* advance, const v
   return cudaGetLastError();
 }
 
+// --- m = 256: a window a cluster of four CTAs (fused_cluster.cuh).
+
+// The spectrum handoff at m = 256: the cluster of window b = blockIdx.x / 4
+// of dre, dim bf16 [B, m, m] (advance, phase_re, phase_im float [B]) writes
+// the wire block out[b] [m/2, 2m]. CTA rank p: row block p of G = bf16(D w)
+// (k2 in [64 p, 64 p + 64)) into X; C2 = G Fi on it, B2 = bf16(C2 *
+// conj(T)) into Y; a cluster barrier; strip p of B2 (columns n1 in [64 p,
+// 64 p + 64), every row k2) gathered into X; a cluster barrier; then the
+// centre rows n2 in [m/4, 3m/4) of y = Fi B2 on strip p, quantized to the
+// 128 bytes of each output row that hold samples n1 of the strip.
+__global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
+apply_spec_cluster_kernel(const __nv_bfloat16* __restrict__ dre,
+                          const __nv_bfloat16* __restrict__ dim,
+                          const float* __restrict__ advance, const float* __restrict__ phase_re,
+                          const float* __restrict__ phase_im, const float2* __restrict__ Fi,
+                          const float2* __restrict__ Tw, int8_t* __restrict__ out) {
+  using namespace cl;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int p = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x >> 5;
+  const size_t b = blockIdx.x / kRanks;
+
+  // Row block p of G: 16-byte vectors of D (8 elements of a row), weighted.
+  {
+    const Ramp<kM> ramp(advance[b], phase_re[b], phase_im[b]);
+    constexpr int kVec = kPlane / 8;
+    constexpr int kSteps = kVec / kThreads;
+    static_assert(kVec % kThreads == 0, "whole rounds only");
+    const uint4* src_re = reinterpret_cast<const uint4*>(dre + b * kW) + p * kVec;
+    const uint4* src_im = reinterpret_cast<const uint4*>(dim + b * kW) + p * kVec;
+    uint4 vr[kSteps], vi[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      vr[u] = __ldcs(src_re + threadIdx.x + u * kThreads);
+      vi[u] = __ldcs(src_im + threadIdx.x + u * kThreads);
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int q = threadIdx.x + u * kThreads;
+      const int r = 8 * q / kM, c = 8 * q % kM;
+      const uint32_t xr[4] = {vr[u].x, vr[u].y, vr[u].z, vr[u].w};
+      const uint32_t xi[4] = {vi[u].x, vi[u].y, vi[u].z, vi[u].w};
+      uint32_t ore[4], oim[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 re = unpack_bf16(xr[i]), im = unpack_bf16(xi[i]);
+        const uint2 gw = ramp.g_pair(kPart * p + r, c + 2 * i, make_float2(re.x, im.x),
+                                     make_float2(re.y, im.y));
+        ore[i] = gw.x;
+        oim[i] = gw.y;
+      }
+      const int o = tc::swz<kM>(r, c);
+      *reinterpret_cast<uint4*>(X + o) = make_uint4(ore[0], ore[1], ore[2], ore[3]);
+      *reinterpret_cast<uint4*>(X + kPlane + o) = make_uint4(oim[0], oim[1], oim[2], oim[3]);
+    }
+  }
+  __syncthreads();
+  // Row block p of B2: 4 row tiles x 8 column tiles.
+  for (int tile = warp; tile < (kPart / 16) * (kM / tc::kChunk); tile += kWarps) {
+    const int r0 = 16 * (tile % (kPart / 16));
+    const int c0 = tc::kChunk * (tile / (kPart / 16));
+    float are[kTiles][4], aim[kTiles][4];
+    block_x_table(X, X + kPlane, r0, Fi, c0, are, aim);
+    each_pair(are, aim, r0, c0, [&](int r, int c, float4 v) {
+      const float4 tw =
+          __ldg(reinterpret_cast<const float4*>(Tw + (kPart * p + r) * kM + c));
+      store_pair(Y, tc::swz<kM>(r, c), tc::twiddle<true>(v.x, v.y, tw.x, tw.y),
+                 tc::twiddle<true>(v.z, v.w, tw.z, tw.w));
+    });
+  }
+  cluster.sync();   // every row block of B2 complete; G read
+  gather_strip(Y, X);
+  cluster.sync();   // every strip gathered: no more remote reads
+  // The centre rows of y on strip p: 8 row tiles x 2 column tiles.
+  int8_t* wire = out + b * kW;
+  for (int tile = warp; tile < (kM / 2 / 16) * (kPart / tc::kChunk); tile += kWarps) {
+    const int r0 = kM / 4 + 16 * (tile / (kPart / tc::kChunk));
+    const int c0 = tc::kChunk * (tile % (kPart / tc::kChunk));
+    float yre[kTiles][4], yim[kTiles][4];
+    table_x_strip(Fi, r0, X, X + kPlane, c0, yre, yim);
+    each_pair(yre, yim, r0, c0, [&](int r, int c, float4 y) {
+      const uint32_t w = wire_pair(y.x, y.y) | (static_cast<uint32_t>(wire_pair(y.z, y.w)) << 16);
+      __stcs(reinterpret_cast<unsigned int*>(wire + (r - kM / 4) * (2 * kM) + 2 * (kPart * p + c)),
+             w);
+    });
+  }
+}
+
+int launch_cluster(const void* dre, const void* dim, const void* advance, const void* phase_re,
+                   const void* phase_im, const void* Fi, const void* Tw, void* out, int T1, int N,
+                   void* stream) {
+  const int smem = static_cast<int>(2 * cl::kBuf);
+  const cudaError_t err = set_smem(apply_spec_cluster_kernel, smem);
+  if (err != cudaSuccess) return err;
+  apply_spec_cluster_kernel<<<cl::kRanks * T1 * N, cl::kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dre), static_cast<const __nv_bfloat16*>(dim),
+      static_cast<const float*>(advance), static_cast<const float*>(phase_re),
+      static_cast<const float*>(phase_im), static_cast<const float2*>(Fi),
+      static_cast<const float2*>(Tw), static_cast<int8_t*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace fused
 
 // dre, dim bf16 [T-1, N, m, m]; advance, phase_re, phase_im float [T-1, N];
 // tables Fi (bf16-rounded conj(F)/m) and Tw float2 [m, m]; out int8
-// [T-1, N, m/2, 2m]. Returns the CUDA error code of the launch (0 on
-// success); -1 for an unsupported m or no window.
+// [T-1, N, m/2, 2m]; m in {64, 128, 256}. Returns the CUDA error code of
+// the launch (0 on success); -1 for an unsupported m or no window.
 extern "C" int fused_apply_spec_i8(const void* dre, const void* dim, const void* advance,
                                    const void* phase_re, const void* phase_im, const void* Fi,
                                    const void* Tw, void* out, int T1, int N, int m,
@@ -398,6 +516,9 @@ extern "C" int fused_apply_spec_i8(const void* dre, const void* dim, const void*
     case 128:
       return fused::launch<128>(dre, dim, advance, phase_re, phase_im, Fi, Tw, out, T1, N,
                                 stream);
+    case 256:
+      return fused::launch_cluster(dre, dim, advance, phase_re, phase_im, Fi, Tw, out, T1, N,
+                                   stream);
     default:
       return -1;
   }

@@ -1,8 +1,9 @@
 // Shared device helpers of the measure and apply kernels (fused_measure.cu,
-// fused_apply.cu). fourstep.cu runs its products with tc_common.cuh alone,
-// and probe_copy.cu needs none of these.
+// fused_apply.cu; the m = 256 cluster kernels add fused_cluster.cuh).
+// fourstep.cu runs its products with tc_common.cuh alone, and probe_copy.cu
+// needs none of these.
 //
-// Layouts (W = m*m, m in {64, 128}):
+// Layouts (W = m*m, m in {64, 128, 256}):
 //   * a stream block is int8 [m/2, 2m]: row r holds samples [r*m, (r+1)*m)
 //     as I0 Q0 I1 Q1 ...; or, on the float path, two bf16 planes (re, im)
 //     [m/2, m]; the window of output slot t is blocks (t, t+1);
@@ -16,8 +17,9 @@
 // float32 on the tensor cores (tc_common.cuh: mma.sync m16n8k16, a warp a
 // 16-row strip, the strip designs of fourstep.cu's consumers), as the TPU's
 // bf16/f32 matmul does (a product of two bf16 values is exact in float32),
-// so the kernels equal it up to summation order. Every measure and apply
-// kernel is one CTA a window of m / 16 warps, or a persistent grid of them:
+// so the kernels equal it up to summation order. At m in {64, 128} every
+// measure and apply kernel is one CTA a window of m / 16 warps, or a
+// persistent grid of them:
 //   * the forward transform forward_tc, after a window loader
 //     (load_window_i8 for int8 blocks, load_window_planes for bf16 planes)
 //     and the table loader load_table;

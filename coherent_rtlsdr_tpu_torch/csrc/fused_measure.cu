@@ -44,7 +44,21 @@
 // The load has no overlap with the products, and the grid is one CTA a
 // window: a persistent grid with a double-buffered producer (fourstep.cu,
 // fused_apply.cu), TMA or wgmma is later work.
+//
+// m = 256 (W = 65536): no CTA can hold a window (the layout above needs
+// 786 kB of shared memory, and a 16-row strip at full width 256 float32
+// accumulators a thread), so measure_ref_cluster_kernel and
+// measure_cluster_kernel<STORE_D> run a window on a cluster of four CTAs
+// of 16 warps (fused_cluster.cuh: forward_cluster), and the phase zoom
+// (cluster_phase_zoom) sums across the cluster in rank order. Shared memory
+// a CTA, 196,704 bytes: X (64 kB: the window's strip, then C's row block,
+// then the zoom's scratch), Y (64 kB: C's strip, which the other CTAs
+// gather) and Z; G [64][256] float32 overlays Y and Z. The products take
+// their table operand (F, 512 kB of float32 pairs) from L2, ~3 MB a CTA,
+// which bounds them rather than the 268 MFLOP of a window (0.36 ms over
+// 1,323 windows at the bf16 peak).
 
+#include "fused_cluster.cuh"
 #include "fused_common.cuh"
 
 namespace fused {
@@ -400,11 +414,270 @@ int launch_planes(const void* pre, const void* pim, const void* rre, const void*
   return cudaGetLastError();
 }
 
+// --- m = 256: a window a cluster of four CTAs (fused_cluster.cuh).
+
+// phase_zoom on a window spread over the cluster: this CTA (rank p) holds
+// rows k2 in [64 p, 64 p + 64) of G (float2 [64][m], shared), which it
+// deramps in place. The stage-1 bands (8 rows of a column) lie inside a row
+// block, so only the products across a block boundary (band 8p with band
+// 8p - 1 of rank p - 1; band 0 of column k1 with the last band of column
+// k1 - 1, on rank 3) read another CTA's band sums. s1, the column sums of
+// stage 2 and the final sums (z, and the caller's two in `extra`) are
+// combined over the ranks in order, so every CTA derives the same integer
+// lag and fraction. aux: 9.5 m float2 of free shared memory; part: 6
+// floats the other CTAs read; red: the block_sum scratch.
+__device__ __forceinline__ ZoomResult cluster_phase_zoom(float2* G, float2* aux, float* part,
+                                                         float* red, float (&extra)[2]) {
+  namespace cg = cooperative_groups;
+  using namespace cl;
+  constexpr int NT = kThreads;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int p = static_cast<int>(cluster.block_rank());
+  // --- stage 1: band sums g1[jl][k1] of the bands j = 8p + jl.
+  float2* g1 = aux;
+  for (int i = threadIdx.x; i < (kPart / 8) * kM; i += NT) {
+    const int jl = i / kM, c = i % kM;
+    float sr = 0.f, si = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float2 g = G[(8 * jl + q) * kM + c];
+      sr += g.x;
+      si += g.y;
+    }
+    g1[i] = make_float2(sr, si);
+  }
+  cluster.sync();
+  const float2* g1_prev = cluster.map_shared_rank(g1, (p + kRanks - 1) % kRanks);
+  float s1re = 0.f, s1im = 0.f;
+  for (int i = threadIdx.x; i < (kPart / 8) * kM; i += NT) {
+    const int jl = i / kM, c = i % kM;
+    float2 prev;
+    if (jl > 0) {
+      prev = g1[i - kM];
+    } else if (p > 0) {
+      prev = g1_prev[(kPart / 8 - 1) * kM + c];
+    } else if (c >= 1 && c - 1 != kM / 2 - 1) {
+      prev = g1_prev[(kPart / 8 - 1) * kM + c - 1];
+    } else {
+      continue;
+    }
+    const float2 cur = g1[i];
+    s1re += cur.x * prev.x + cur.y * prev.y;
+    s1im += cur.y * prev.x - cur.x * prev.y;
+  }
+  s1re = block_sum<NT>(s1re, red);
+  s1im = block_sum<NT>(s1im, red);
+  if (threadIdx.x == 0) {
+    part[0] = s1re;
+    part[1] = s1im;
+  }
+  cluster.sync();
+  float s1[2];
+  cluster_sum(part, s1);
+  constexpr float kStage1 = static_cast<float>((kW / 8) / 6.283185307179586);
+  const float int_lag = rintf(-atan2f(s1[1], s1[0]) * kStage1);
+
+  // --- stage 2: deramp this block of G by the integer lag, in place.
+  const int neg_lag = -static_cast<int>(int_lag);
+  for (int i = threadIdx.x; i < kPart * kM; i += NT) {
+    const int r = i / kM, c = i % kM;
+    float s, co;
+    sincospif(2.f * iramp_fraction<kW>(static_cast<uint32_t>(kPart * p + r + kM * c), neg_lag),
+              &s, &co);
+    const float2 g = G[i];
+    G[i] = make_float2(g.x * co + g.y * s, g.y * co - g.x * s);
+  }
+  __syncthreads();
+  // Column sums of the block, then (every CTA alike) the pair sums over the
+  // four blocks, g2[b] = col[2b] + col[2b + 1].
+  float2* col = aux + (kPart / 8) * kM;
+  float2* g2 = col + kM;
+  if (threadIdx.x < kM) {
+    float sr = 0.f, si = 0.f;
+    for (int r = 0; r < kPart; ++r) {
+      const float2 g = G[r * kM + threadIdx.x];
+      sr += g.x;
+      si += g.y;
+    }
+    col[threadIdx.x] = make_float2(sr, si);
+  }
+  cluster.sync();
+  if (threadIdx.x < kM / 2) {
+    float sr = 0.f, si = 0.f;
+    for (int r = 0; r < kRanks; ++r) {
+      const float2* rc = cluster.map_shared_rank(col, r);
+      const float2 a = rc[2 * threadIdx.x], b = rc[2 * threadIdx.x + 1];
+      sr += a.x + b.x;
+      si += a.y + b.y;
+    }
+    g2[threadIdx.x] = make_float2(sr, si);
+  }
+  __syncthreads();
+  constexpr int M2 = kM / 2;
+  float s2re = 0.f, s2im = 0.f;
+  for (int b = 1; b < M2; ++b) {
+    if (b - 1 == M2 / 2 - 1) continue;
+    const float2 cur = g2[b];
+    const float2 prev = g2[b - 1];
+    s2re += cur.x * prev.x + cur.y * prev.y;
+    s2im += cur.y * prev.x - cur.x * prev.y;
+  }
+  constexpr float kStage2 = static_cast<float>(M2 / 6.283185307179586);
+  const float frac = fminf(fmaxf(-atan2f(s2im, s2re) * kStage2, -4.f), 4.f);
+
+  // --- z = sum Gc e^{2 pi i frac f} over the block, then over the cluster.
+  const float w = 2.f * frac;
+  float zre = 0.f, zim = 0.f;
+  for (int i = threadIdx.x; i < kPart * kM; i += NT) {
+    const int r = i / kM, c = i % kM;
+    float s, co;
+    sincospif(w * signed_freq<kW>(static_cast<uint32_t>(kPart * p + r + kM * c)), &s, &co);
+    const float2 g = G[i];
+    zre += g.x * co - g.y * s;
+    zim += g.x * s + g.y * co;
+  }
+  zre = block_sum<NT>(zre, red);
+  zim = block_sum<NT>(zim, red);
+  if (threadIdx.x == 0) {
+    part[2] = zre;
+    part[3] = zim;
+    part[4] = extra[0];
+    part[5] = extra[1];
+  }
+  cluster.sync();
+  float v[4];
+  cluster_sum(part + 2, v);
+  extra[0] = v[2];
+  extra[1] = v[3];
+  cluster.sync();   // every CTA has read every part: the CTAs may leave
+  return ZoomResult{int_lag + frac, v[0], v[1]};
+}
+
+// Shared memory of the m = 256 measure kernels: X, Y, Z (64 kB each; see
+// forward_cluster, G over Y and Z), then the block_sum scratch and the
+// partial sums the other CTAs read.
+struct MeasureClusterSmem {
+  static constexpr size_t kX = 0, kY = cl::kBuf, kZ = 2 * cl::kBuf;
+  static constexpr size_t kRed = 3 * cl::kBuf;
+  static constexpr size_t kPartOff = kRed + cl::kWarps * sizeof(float);
+  static constexpr size_t kBytes = kPartOff + 8 * sizeof(float);
+};
+
+// m = 256, reference mode: the cluster of window t (blockIdx.y) writes R[t]
+// (float2 [m, m]) and eref[t] = sum |R|^2.
+__global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
+measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict__ F,
+                           const float2* __restrict__ Tw, float2* __restrict__ R,
+                           float* __restrict__ eref) {
+  using S = MeasureClusterSmem;
+  using namespace cl;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
+  float* part = reinterpret_cast<float*>(smem + S::kPartOff);
+
+  const int t = blockIdx.y;
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  float2* Rt = R + static_cast<size_t>(t) * kW + static_cast<size_t>(kPart) * p * kM;
+  float e = 0.f;
+  forward_cluster(ref_raw + static_cast<size_t>(t) * kW, kW, F, Tw, X, Y,
+                  [&](int r, int c, float4 d) {
+                    *reinterpret_cast<float4*>(Rt + r * kM + c) = d;
+                    e += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
+                  });
+  e = block_sum<kThreads>(e, red);
+  if (threadIdx.x == 0) part[0] = e;
+  cooperative_groups::this_cluster().sync();
+  if (p == 0 && threadIdx.x == 0) {
+    float v[1];
+    cluster_sum(part, v);
+    eref[t] = v[0];
+  }
+  cooperative_groups::this_cluster().sync();   // rank 0 has read every part
+}
+
+// m = 256, channel mode of the i8 path: the cluster of window (t, n) =
+// (blockIdx.y, blockIdx.x / 4) against R and eref from
+// measure_ref_cluster_kernel; the outputs of measure_kernel<256, STORE_D>.
+template <bool STORE_D>
+__global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
+measure_cluster_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
+                       const float2* __restrict__ Tw, const float2* __restrict__ R,
+                       const float* __restrict__ eref, float* __restrict__ lag_out,
+                       float* __restrict__ zre_out, float* __restrict__ zim_out,
+                       float* __restrict__ mag_out, float* __restrict__ papr_out,
+                       __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
+  using S = MeasureClusterSmem;
+  using namespace cl;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
+  float2* G = reinterpret_cast<float2*>(smem + S::kY);   // over Y and Z: [64][m]
+  float2* aux = reinterpret_cast<float2*>(smem + S::kX);  // over X, after the products
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
+  float* part = reinterpret_cast<float*>(smem + S::kPartOff);
+
+  const int N = gridDim.x / kRanks;
+  const int n = blockIdx.x / kRanks;
+  const int t = blockIdx.y;
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const size_t win = static_cast<size_t>(t) * N + n;
+  const size_t row0 = static_cast<size_t>(kPart) * p * kM;   // this block's first element
+  const float2* Rt = R + static_cast<size_t>(t) * kW + row0;
+  const I8Out<STORE_D> out{eref, lag_out, zre_out, zim_out, mag_out, papr_out, dre_out, dim_out};
+  float esig = 0.f, eg = 0.f;
+  forward_cluster(raw + win * kW, static_cast<size_t>(N) * kW, F, Tw, X, Y,
+                  [&](int r, int c, float4 d) {
+                    out.d(win * kW + row0 + r * kM + c, d);
+                    const float4 rr = __ldg(reinterpret_cast<const float4*>(Rt + r * kM + c));
+                    const float g0re = d.x * rr.x + d.y * rr.y, g0im = d.y * rr.x - d.x * rr.y;
+                    const float g1re = d.z * rr.z + d.w * rr.w, g1im = d.w * rr.z - d.z * rr.w;
+                    *reinterpret_cast<float4*>(G + r * kM + c) =
+                        make_float4(g0re, g0im, g1re, g1im);
+                    esig += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
+                    eg += g0re * g0re + g0im * g0im + g1re * g1re + g1im * g1im;
+                  });
+  float sums[2] = {block_sum<kThreads>(esig, red), block_sum<kThreads>(eg, red)};
+  // block_sum's barriers: G complete, X free for aux.
+  const ZoomResult z = cluster_phase_zoom(G, aux, part, red, sums);
+  if (p == 0 && threadIdx.x == 0) out.scalars(t, win, z, sums[0], sums[1]);
+}
+
+int launch_ref_cluster(const void* ref_raw, const void* F, const void* Tw, void* R, void* eref,
+                       int T1, void* stream) {
+  const int smem = static_cast<int>(MeasureClusterSmem::kBytes);
+  const cudaError_t err = set_smem(measure_ref_cluster_kernel, smem);
+  if (err != cudaSuccess) return err;
+  measure_ref_cluster_kernel<<<dim3(cl::kRanks, T1), cl::kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(ref_raw), static_cast<const float2*>(F),
+      static_cast<const float2*>(Tw), static_cast<float2*>(R), static_cast<float*>(eref));
+  return cudaGetLastError();
+}
+
+template <bool STORE_D>
+int launch_cluster(const void* raw, const void* F, const void* Tw, const void* R,
+                   const void* eref, void* lag, void* zre, void* zim, void* mag, void* papr,
+                   void* dre, void* dim, int T1, int N, void* stream) {
+  const int smem = static_cast<int>(MeasureClusterSmem::kBytes);
+  const cudaError_t err = set_smem(measure_cluster_kernel<STORE_D>, smem);
+  if (err != cudaSuccess) return err;
+  measure_cluster_kernel<STORE_D><<<dim3(cl::kRanks * N, T1), cl::kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(raw), static_cast<const float2*>(F),
+      static_cast<const float2*>(Tw), static_cast<const float2*>(R),
+      static_cast<const float*>(eref), static_cast<float*>(lag), static_cast<float*>(zre),
+      static_cast<float*>(zim), static_cast<float*>(mag), static_cast<float*>(papr),
+      static_cast<__nv_bfloat16*>(dre), static_cast<__nv_bfloat16*>(dim));
+  return cudaGetLastError();
+}
+
 }  // namespace fused
 
 // ref_raw int8 [T, m/2, 2m]; tables F, Tw float2 [m, m]; outputs R float2
-// [T-1, m, m] and eref float [T-1]. Returns the CUDA error code of the
-// launch (0 on success); -1 for an unsupported m.
+// [T-1, m, m] and eref float [T-1]; m in {64, 128, 256}. Returns the CUDA
+// error code of the launch (0 on success); -1 for an unsupported m.
 extern "C" int fused_measure_ref(const void* ref_raw, const void* F, const void* Tw, void* R,
                                  void* eref, int T1, int m, void* stream) {
   switch (m) {
@@ -412,6 +685,8 @@ extern "C" int fused_measure_ref(const void* ref_raw, const void* F, const void*
       return fused::launch_ref<64>(ref_raw, F, Tw, R, eref, T1, stream);
     case 128:
       return fused::launch_ref<128>(ref_raw, F, Tw, R, eref, T1, stream);
+    case 256:
+      return fused::launch_ref_cluster(ref_raw, F, Tw, R, eref, T1, stream);
     default:
       return -1;
   }
@@ -419,8 +694,9 @@ extern "C" int fused_measure_ref(const void* ref_raw, const void* F, const void*
 
 // raw int8 [T, N, m/2, 2m]; tables F, Tw float2 [m, m]; R float2 [T-1, m, m]
 // and eref float [T-1] from fused_measure_ref; outputs lag, zre, zim, mag,
-// papr float [T-1, N] and dre, dim bf16 [T-1, N, m, m]. Returns the CUDA
-// error code of the launch (0 on success); -1 for an unsupported m.
+// papr float [T-1, N] and dre, dim bf16 [T-1, N, m, m]; m in {64, 128,
+// 256}. Returns the CUDA error code of the launch (0 on success); -1 for an
+// unsupported m.
 extern "C" int fused_measure_i8_spec(const void* raw, const void* F, const void* Tw,
                                      const void* R, const void* eref, void* lag, void* zre,
                                      void* zim, void* mag, void* papr, void* dre, void* dim,
@@ -432,6 +708,9 @@ extern "C" int fused_measure_i8_spec(const void* raw, const void* F, const void*
     case 128:
       return fused::launch<128, true>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim, T1,
                                       N, stream);
+    case 256:
+      return fused::launch_cluster<true>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, dre, dim,
+                                         T1, N, stream);
     default:
       return -1;
   }
@@ -450,6 +729,9 @@ extern "C" int fused_measure_i8(const void* raw, const void* F, const void* Tw, 
     case 128:
       return fused::launch<128, false>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, nullptr,
                                        nullptr, T1, N, stream);
+    case 256:
+      return fused::launch_cluster<false>(raw, F, Tw, R, eref, lag, zre, zim, mag, papr, nullptr,
+                                          nullptr, T1, N, stream);
     default:
       return -1;
   }

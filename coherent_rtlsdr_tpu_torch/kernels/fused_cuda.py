@@ -26,10 +26,31 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_measure.cu", "fused_apply.cu", "fourstep.cu", "probe_copy.cu")
-HEADERS = ("fused_common.cuh", "tc_common.cuh")
+HEADERS = ("fused_cluster.cuh", "fused_common.cuh", "tc_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SUPPORTED_M = (64, 128)
+
+# The m each C entry point takes. At m = 256 (W = 65536, L = 32768) the i8
+# handoff chain and the recompute measure run a window on a cluster of four
+# CTAs (csrc/fused_cluster.cuh); the other entries are still to be ported
+# there, and their wrappers raise, naming the row of the TPU kernel table
+# (PERF.md, Findings) that holds the kernel they port.
+ADMITTED_M = {
+    "fused_measure_ref": (64, 128, 256),
+    "fused_measure_i8_spec": (64, 128, 256),
+    "fused_measure_i8": (64, 128, 256),
+    "fused_apply_spec_i8": (64, 128, 256),
+    "fused_apply_i8": (64, 128),
+    "fourstep_fft": (64, 128),
+    "fused_measure_planes": (64, 128),
+    "fused_apply_planes": (64, 128),
+}
+TO_PORT_AT_256 = {
+    "fused_apply_i8": "row 4 (pallas_fused.py:447 _apply_kernel_i8)",
+    "fourstep_fft": "row 5 (pallas_fft.py:32/59/88 _fourstep_kernel*)",
+    "fused_measure_planes": "row 6 (pallas_fused.py:185 _measure_kernel)",
+    "fused_apply_planes": "row 7 (pallas_fused.py:220 _apply_kernel)",
+}
 
 
 def _nvcc() -> str:
@@ -91,19 +112,24 @@ def build() -> dict:
 
 
 # The measure kernels, all on the tensor cores, by their ptxas_usage names:
-# {reference, i8 channels with and without the D store, float channels} x m.
+# {reference, i8 channels with and without the D store, float channels} x
+# m in {64, 128}, and the m = 256 cluster kernels (reference, i8 channels
+# with and without D).
 TC_MEASURE_KERNELS = tuple(
-    [f"fused::measure_ref_kernel<{m}>" for m in SUPPORTED_M]
-    + [f"fused::measure_kernel<{m}, {d}>" for m in SUPPORTED_M for d in (1, 0)]
-    + [f"fused::measure_planes_kernel<{m}>" for m in SUPPORTED_M])
+    [f"fused::measure_ref_kernel<{m}>" for m in (64, 128)]
+    + [f"fused::measure_kernel<{m}, {d}>" for m in (64, 128) for d in (1, 0)]
+    + [f"fused::measure_planes_kernel<{m}>" for m in (64, 128)]
+    + ["fused::measure_ref_cluster_kernel", "fused::measure_cluster_kernel<1>",
+       "fused::measure_cluster_kernel<0>"])
 
 # The apply kernels, all on the tensor cores, by their ptxas_usage names:
 # {the spectrum handoff's persistent kernel, the i8 recompute kernel, the
-# float kernel} x m.
+# float kernel} x m in {64, 128}, and the handoff's m = 256 cluster kernel.
 TC_APPLY_KERNELS = tuple(
-    [f"fused::apply_spec_kernel<{m}>" for m in SUPPORTED_M]
-    + [f"fused::apply_i8_kernel<{m}>" for m in SUPPORTED_M]
-    + [f"fused::apply_planes_kernel<{m}>" for m in SUPPORTED_M])
+    [f"fused::apply_spec_kernel<{m}>" for m in (64, 128)]
+    + [f"fused::apply_i8_kernel<{m}>" for m in (64, 128)]
+    + [f"fused::apply_planes_kernel<{m}>" for m in (64, 128)]
+    + ["fused::apply_spec_cluster_kernel"])
 
 
 def _kernel_name(mangled: str) -> str:
@@ -212,9 +238,16 @@ def _tables(fft):
     return pair(fft.fre, fft.fim), pair(fft.fire, fft.fiim), pair(fft.tre, fft.tim)
 
 
-def _setup(k, x: torch.Tensor, fft):
-    if k.m not in SUPPORTED_M:
-        raise ValueError(f"the CUDA kernels take m in {SUPPORTED_M}, got m = {k.m}")
+def admit(entry: str, m: int):
+    """Raise ``ValueError`` unless the C entry point ``entry`` takes m."""
+    if m not in ADMITTED_M[entry]:
+        todo = (f"; at m = 256 it is still to be ported: kernel table {TO_PORT_AT_256[entry]}"
+                if m == 256 else "")
+        raise ValueError(f"{entry} takes m in {ADMITTED_M[entry]}, got m = {m}{todo}")
+
+
+def _setup(k, x: torch.Tensor, fft, entry: str):
+    admit(entry, k.m)
     if x.device != k.device:
         raise ValueError(f"inputs on {x.device}, kernels built for {k.device}")
     return _functions(), _tables(fft), torch.cuda.current_stream(x.device).cuda_stream
@@ -222,7 +255,7 @@ def _setup(k, x: torch.Tensor, fft):
 
 def measure_ref(k, ref_raw: torch.Tensor):
     """Launch ``fused_measure_ref`` (see ``FusedPipelineKernels.measure_ref``)."""
-    fns, (F, _, Tw), stream = _setup(k, ref_raw, k.fft)
+    fns, (F, _, Tw), stream = _setup(k, ref_raw, k.fft, "fused_measure_ref")
     m = k.m
     T = ref_raw.shape[0]
     if T < 2:
@@ -253,7 +286,7 @@ def _measure_channels(k, raw, R, eref, store_d: bool):
     """Launch ``fused_measure_i8_spec`` (``store_d``) or ``fused_measure_i8``
     on int8 blocks against the reference spectra of ``measure_ref``."""
     name = "fused_measure_i8_spec" if store_d else "fused_measure_i8"
-    fns, (F, _, Tw), stream = _setup(k, raw, k.fft)
+    fns, (F, _, Tw), stream = _setup(k, raw, k.fft, name)
     m, dev = k.m, raw.device
     T1, N = _expect_raw(raw, name, m)
     _expect(R, "R", torch.float32, (T1, m, m, 2), dev)
@@ -286,7 +319,7 @@ def measure_i8(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
 
 def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
     """Launch ``fused_apply_spec_i8`` (see ``FusedPipelineKernels.apply_spec_i8``)."""
-    fns, (_, Fi, Tw), stream = _setup(k, dre, k.fft)
+    fns, (_, Fi, Tw), stream = _setup(k, dre, k.fft, "fused_apply_spec_i8")
     m = k.m
     T1, N = dre.shape[:2]
     dev = dre.device
@@ -306,7 +339,7 @@ def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
 
 def apply_i8(k, raw, advance, phase_re, phase_im):
     """Launch ``fused_apply_i8`` (see ``FusedPipelineKernels.apply_i8``)."""
-    fns, (F, Fi, Tw), stream = _setup(k, raw, k.fft)
+    fns, (F, Fi, Tw), stream = _setup(k, raw, k.fft, "fused_apply_i8")
     m, dev = k.m, raw.device
     T1, N = _expect_raw(raw, "fused_apply_i8", m)
     for name, x in (("advance", advance), ("phase_re", phase_re), ("phase_im", phase_im)):
@@ -332,7 +365,7 @@ def _expect_planes(pre, pim, dev, m):
 
 def measure_planes(k, pre, pim, rre, rim):
     """Launch ``fused_measure_planes`` (see ``FusedPipelineKernels.measure``)."""
-    fns, (F, _, Tw), stream = _setup(k, pre, k.fft)
+    fns, (F, _, Tw), stream = _setup(k, pre, k.fft, "fused_measure_planes")
     m, dev = k.m, pre.device
     T1, N = _expect_planes(pre, pim, dev, m)
     for name, x in (("rre", rre), ("rim", rim)):
@@ -350,7 +383,7 @@ def measure_planes(k, pre, pim, rre, rim):
 
 def apply_planes(k, pre, pim, advance):
     """Launch ``fused_apply_planes`` (see ``FusedPipelineKernels.apply``)."""
-    fns, (F, Fi, Tw), stream = _setup(k, pre, k.fft)
+    fns, (F, Fi, Tw), stream = _setup(k, pre, k.fft, "fused_apply_planes")
     m, dev = k.m, pre.device
     T1, N = _expect_planes(pre, pim, dev, m)
     _expect(advance, "advance", torch.float32, (T1, N), dev)
@@ -371,7 +404,7 @@ def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     ``FFT4StepKernel``), with the instance's packed bf16 table of F or Fi
     and the float32 twiddle of its plain version; returns complex64
     ``[B, m, m]``."""
-    fns, (_, _, Tw), stream = _setup(k, x, k.plain)
+    fns, (_, _, Tw), stream = _setup(k, x, k.plain, "fourstep_fft")
     m, dev = k.m, x.device
     B = x.shape[0]
     if B < 1:

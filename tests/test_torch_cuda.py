@@ -56,7 +56,7 @@ def _ulp_apart(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["random", "correlated"])
 def test_kernels_match_plain_on_card(kind, m, cuda_device):
     k = FusedPipelineKernels(m * m, cuda_device)
@@ -92,13 +92,14 @@ def test_kernels_match_plain_on_card(kind, m, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
 def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
     """The three i8 measure entries (reference, channels with and without the
     D store) against their plain versions on correlated bytes: one window of
     21 channels (a streaming step), a single channel, and 26 x 21 windows,
-    which fill no whole wave of CTAs on 132 SMs at either m."""
+    which fill no whole wave of CTAs on 132 SMs at any m (at m = 256 a
+    window is a cluster of four CTAs)."""
     t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
     k = FusedPipelineKernels(m * m, cuda_device)
     raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
@@ -131,10 +132,11 @@ def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_d
 
 @pytest.mark.cuda
 def test_measure_kernels_use_no_stack_on_card(cuda_device):
-    """ptxas: the fourteen tensor-core instantiations, the eight measure ones
-    ({reference, i8 channels with and without D, float channels} x m in
-    {64, 128}) and the six apply ones ({i8 handoff, i8 recompute, float} x
-    m), use no stack frame and spill nothing."""
+    """ptxas: the eighteen tensor-core instantiations, the eleven measure
+    ones ({reference, i8 channels with and without D, float channels} x m in
+    {64, 128}, and the three m = 256 cluster kernels) and the seven apply
+    ones ({i8 handoff, i8 recompute, float} x m in {64, 128}, and the m = 256
+    handoff), use no stack frame and spill nothing."""
     report = fused_cuda.build()
     for src, names in (("fused_measure.cu", fused_cuda.TC_MEASURE_KERNELS),
                        ("fused_apply.cu", fused_cuda.TC_APPLY_KERNELS)):
@@ -145,14 +147,15 @@ def test_measure_kernels_use_no_stack_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
 def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
-    """Both i8 apply kernels (the handoff's persistent grid, the recompute
-    kernel) against their plain versions by the wire bars, on correlated
-    bytes: one window of 21 channels (a streaming step), a single channel,
-    and 26 x 21 windows, no whole number of rounds of the persistent grid;
-    among the advances a large negative and a fractional one."""
+    """Both i8 apply kernels (the handoff's persistent grid or, at m = 256,
+    its cluster kernel; the recompute kernel where it takes m) against
+    their plain versions by the wire bars, on correlated bytes: one window
+    of 21 channels (a streaming step), a single channel, and 26 x 21
+    windows, no whole number of rounds of the persistent grid; among the
+    advances a large negative and a fractional one."""
     t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
     k = FusedPipelineKernels(m * m, cuda_device)
     raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
@@ -164,17 +167,42 @@ def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_dev
     ph = torch.rand((t - 1, n), generator=g, device=cuda_device) * 6.283185307179586
     args = (adv, torch.cos(ph), torch.sin(ph))
     k.reset_counts()
-    pairs = ((k.apply_spec_i8(spec[5], spec[6], *args), k.apply_spec_i8_plain(spec[5], spec[6], *args)),
-             (k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args)))
+    pairs = [(k.apply_spec_i8(spec[5], spec[6], *args),
+              k.apply_spec_i8_plain(spec[5], spec[6], *args))]
+    want = dict(apply_spec_i8_launches=1, apply_spec_i8_plain_runs=1)
+    if m in fused_cuda.ADMITTED_M["fused_apply_i8"]:
+        pairs.append((k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args)))
+        want.update(apply_i8_launches=1, apply_i8_plain_runs=1)
     torch.cuda.synchronize()
-    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(
-        apply_spec_i8_launches=1, apply_spec_i8_plain_runs=1, apply_i8_launches=1,
-        apply_i8_plain_runs=1)
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | want
     for got, want in pairs:
         assert got.dtype == torch.int8 and got.shape == (t - 1, n, m // 2, 2 * m)
         assert want.int().abs().max().item() >= 8
         d = (got.int() - want.int()).abs()
         assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_unported_entries_raise_at_m256_on_card(cuda_device):
+    """At m = 256 the recompute apply, the four-step kernel and the float
+    pair (kernel table rows 4-7) raise on CUDA tensors, naming their row,
+    and nothing runs: no launch and no plain version."""
+    m = 256
+    k = FusedPipelineKernels(m * m, cuda_device)
+    fk = FFT4StepKernel(m * m, cuda_device)
+    raw = torch.zeros((2, 1, m // 2, 2 * m), dtype=torch.int8, device=cuda_device)
+    one = torch.zeros((1, 1), device=cuda_device)
+    planes = torch.zeros((2, 1, m // 2, m), dtype=torch.bfloat16, device=cuda_device)
+    spec = torch.zeros((1, m, m), dtype=torch.bfloat16, device=cuda_device)
+    calls = {"row 4": lambda: k.apply_i8(raw, one, one, one),
+             "row 5": lambda: fk.fft(torch.zeros((1, m * m), dtype=torch.complex64,
+                                                 device=cuda_device)),
+             "row 6": lambda: k.measure(planes, planes, spec, spec),
+             "row 7": lambda: k.apply(planes, planes, one)}
+    for row, call in calls.items():
+        with pytest.raises(ValueError, match=row):
+            call()
+    assert set(k.counts().values()) == {0} and set(fk.counts().values()) == {0}
 
 
 @pytest.mark.cuda

@@ -164,27 +164,64 @@ def test_get_fused_kernels_is_one_instance_per_device():
 
 
 def test_cuda_wrapper_rejects_unsupported_sizes():
-    # m = 256 (W = 65536) has a plain version but no CUDA kernel yet; the
-    # wrapper refuses it before touching a device.
-    k = FusedPipelineKernels(65536, "cpu")
-    raw = torch.zeros((2, 1, 128, 512), dtype=torch.int8)
+    # m = 32 has a plain version but no CUDA kernel, and at m = 256 the
+    # entries of kernel table rows 4-7 are still to be ported: the wrapper
+    # refuses both before touching a device, naming the row at m = 256.
+    k = FusedPipelineKernels(1024, "cpu")
+    raw = torch.zeros((2, 1, 16, 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="m in"):
         fused_cuda.measure_ref(k, raw[:, 0])
     with pytest.raises(ValueError, match="m in"):
         fused_cuda.measure_spec(k, raw, *k.measure_ref_plain(raw[:, 0]))
-    d = torch.zeros((1, 1, 256, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="m in"):
+        fused_cuda.measure_i8(k, raw, *k.measure_ref_plain(raw[:, 0]))
+    d = torch.zeros((1, 1, 32, 32), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="m in"):
         fused_cuda.apply_spec_i8(k, d, d, *(torch.zeros((1, 1)),) * 3)
+    k = FusedPipelineKernels(65536, "cpu")
+    raw = torch.zeros((2, 1, 128, 512), dtype=torch.int8)
+    one = torch.zeros((1, 1))
+    with pytest.raises(ValueError, match="row 4"):
+        fused_cuda.apply_i8(k, raw, one, one, one)
+    d = torch.zeros((1, 1, 256, 256), dtype=torch.bfloat16)
     planes = torch.zeros((2, 1, 128, 256), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="m in"):
+    with pytest.raises(ValueError, match="row 6"):
         fused_cuda.measure_planes(k, planes, planes, d[0], d[0])
-    with pytest.raises(ValueError, match="m in"):
-        fused_cuda.apply_planes(k, planes, planes, torch.zeros((1, 1)))
+    with pytest.raises(ValueError, match="row 7"):
+        fused_cuda.apply_planes(k, planes, planes, one)
     fk = FFT4StepKernel(65536, "cpu")
-    with pytest.raises(ValueError, match="m in"):
+    with pytest.raises(ValueError, match="row 5"):
         fused_cuda.fourstep(fk, torch.zeros((1, 256, 256), dtype=torch.complex64), False)
     with pytest.raises(ValueError):
         FusedPipelineKernels(4000, "cpu")
+
+
+def test_cuda_admission_is_per_entry():
+    """Each C entry point takes its own set of m: the i8 handoff chain and
+    the recompute measure at m in {64, 128, 256}, the rest at {64, 128},
+    each of those with the kernel table row it waits for at m = 256."""
+    full, small = (64, 128, 256), (64, 128)
+    assert fused_cuda.ADMITTED_M == {
+        "fused_measure_ref": full, "fused_measure_i8_spec": full, "fused_measure_i8": full,
+        "fused_apply_spec_i8": full, "fused_apply_i8": small, "fourstep_fft": small,
+        "fused_measure_planes": small, "fused_apply_planes": small}
+    assert set(fused_cuda.ADMITTED_M) == {name for _, name, *_ in fused_cuda.ENTRY_POINTS
+                                          if name != "probe_copy_blocks"}
+    rows = {"fused_apply_i8": 4, "fourstep_fft": 5, "fused_measure_planes": 6,
+            "fused_apply_planes": 7}
+    for entry, m_set in fused_cuda.ADMITTED_M.items():
+        for m in m_set:
+            fused_cuda.admit(entry, m)
+        if entry in rows:
+            with pytest.raises(ValueError, match=f"{entry} .* row {rows[entry]} "):
+                fused_cuda.admit(entry, 256)
+        with pytest.raises(ValueError, match="m in"):
+            fused_cuda.admit(entry, 512)
+    names = fused_cuda.TC_MEASURE_KERNELS + fused_cuda.TC_APPLY_KERNELS
+    assert len(names) == len(set(names)) == 18
+    assert {n for n in names if "cluster" in n} == {
+        "fused::measure_ref_cluster_kernel", "fused::measure_cluster_kernel<1>",
+        "fused::measure_cluster_kernel<0>", "fused::apply_spec_cluster_kernel"}
 
 
 def test_no_fallback_without_the_card(monkeypatch, tmp_path):
@@ -239,6 +276,14 @@ ptxas info    : Compiling entry function '_ZN5fused15apply_i8_kernelILi64EEEvPKa
 ptxas info    : Function properties for _ZN5fused15apply_i8_kernelILi64EEEvPKaPKfS4_S4_PK6float2S7_S7_Pa
     32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 122 registers, used 1 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5fused26measure_ref_cluster_kernelEPKaPK6float2S4_PS2_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fused26measure_ref_cluster_kernelEPKaPK6float2S4_PS2_Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5fused22measure_cluster_kernelILb0EEEvPKaPK6float2S5_S5_PKfPfS9_S9_S9_S9_P13__nv_bfloat16SB_' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fused22measure_cluster_kernelILb0EEEvPKaPK6float2S5_S5_PKfPfS9_S9_S9_S9_P13__nv_bfloat16SB_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers, 448 bytes cmem[0]
 ptxas info    : Compiling entry function 'probe_entry' for 'sm_90a'
 ptxas info    : Function properties for probe_entry
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -257,13 +302,17 @@ def test_ptxas_usage_reads_each_entry_kernel():
                                               spill_loads=0),
         "fused::apply_i8_kernel<64>": dict(registers=122, stack=32, spill_stores=0,
                                            spill_loads=0),
+        "fused::measure_ref_cluster_kernel": dict(registers=110, stack=0, spill_stores=0,
+                                                  spill_loads=0),
+        "fused::measure_cluster_kernel<0>": dict(registers=112, stack=0, spill_stores=0,
+                                                 spill_loads=0),
         "probe_entry": dict(registers=10, stack=0, spill_stores=0, spill_loads=0),
     }
-    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 8
+    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 11
     assert {"fused::measure_kernel<128, 1>", "fused::measure_ref_kernel<64>",
             "fused::measure_planes_kernel<64>", "fused::measure_planes_kernel<128>"} < set(
         fused_cuda.TC_MEASURE_KERNELS)
-    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 6
+    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 7
     assert {"fused::apply_spec_kernel<128>", "fused::apply_i8_kernel<64>",
             "fused::apply_planes_kernel<64>", "fused::apply_planes_kernel<128>"} < set(
         fused_cuda.TC_APPLY_KERNELS)

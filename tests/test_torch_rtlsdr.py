@@ -275,6 +275,9 @@ class TestHwDriftRelief:
         relief.tick = lambda delays, now=None: ticks.append(np.array(delays)) or tick(delays, now)
         srv.hw_relief = relief
         try:
+            # The capture threads open the dongles after start returns: a tick
+            # before the first block would find no dongle to set.
+            assert _wait(lambda: src.capture.pushed >= 1)
             relief.tick([0.0, 100.0])   # dongle 2 mid-dwell when the loop starts
             mark = len(_parse(call_log)) - 1
             assert srv.run(max_blocks=8) == 8

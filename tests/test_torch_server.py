@@ -110,30 +110,32 @@ def _assert_same_server_state(jsrv, tsrv):
     np.testing.assert_array_equal(ts.synced, np.asarray(js.synced))
 
 
-# (impl, scan_depth, max_channels, seqnum gaps): the fused, pallas and mxu
-# paths at L = 2048 (W = 64^2, their smallest square length), xla at
-# L = 1024.
+# (impl, scan_depth, max_channels, seqnum gaps, block length, blocks): the
+# fused, pallas and mxu paths at L = 2048 (W = 64^2, their smallest square
+# length), xla at L = 1024, and the fused path at L = 32768 (W = 256^2, its
+# largest; 8 blocks keep the JAX kernels' interpret mode short).
 SERVER_CASES = [
-    pytest.param("fused", 1, None, False, id="fused-1"),
-    pytest.param("fused", 4, None, False, id="fused-4"),
-    pytest.param("xla", 1, None, False, id="xla-1"),
-    pytest.param("xla", 4, None, False, id="xla-4"),
-    pytest.param("xla", 1, 5, False, id="xla-1-padded"),
-    pytest.param("xla", 4, 5, True, id="xla-4-padded-gaps"),
-    pytest.param("fused", 4, 5, True, id="fused-4-padded-gaps"),
-    pytest.param("pallas", 4, None, False, id="pallas-4"),
-    pytest.param("mxu", 1, None, True, id="mxu-1-gaps"),
+    pytest.param("fused", 1, None, False, 2048, 12, id="fused-1"),
+    pytest.param("fused", 4, None, False, 2048, 12, id="fused-4"),
+    pytest.param("xla", 1, None, False, L, 12, id="xla-1"),
+    pytest.param("xla", 4, None, False, L, 12, id="xla-4"),
+    pytest.param("xla", 1, 5, False, L, 12, id="xla-1-padded"),
+    pytest.param("xla", 4, 5, True, L, 12, id="xla-4-padded-gaps"),
+    pytest.param("fused", 4, 5, True, 2048, 12, id="fused-4-padded-gaps"),
+    pytest.param("pallas", 4, None, False, 2048, 12, id="pallas-4"),
+    pytest.param("mxu", 1, None, True, 2048, 12, id="mxu-1-gaps"),
+    pytest.param("fused", 2, None, False, 32768, 8, id="fused-2-L32768"),
 ]
 
 
-@pytest.mark.parametrize("impl, scan_depth, max_channels, gaps", SERVER_CASES)
-def test_matches_jax_server(impl, scan_depth, max_channels, gaps):
-    """Both servers on one FileSource capture (12 blocks, 3 channels): the
-    same frames, seqnums and phases, the same per-channel gaps, last
-    seqnums and sync flags, and the same status line (every channel
-    synchronized where no seqnum jumps)."""
-    block_len = L if impl == "xla" else 2048
-    cap = _capture(block_len, 12)
+@pytest.mark.parametrize("impl, scan_depth, max_channels, gaps, block_len, n_blocks",
+                         SERVER_CASES)
+def test_matches_jax_server(impl, scan_depth, max_channels, gaps, block_len, n_blocks):
+    """Both servers on one FileSource capture (12 blocks, or 8 at L = 32768;
+    3 channels): the same frames, seqnums and phases, the same per-channel
+    gaps, last seqnums and sync flags, and the same status line (every
+    channel synchronized where no seqnum jumps)."""
+    cap = _capture(block_len, n_blocks)
     if gaps:
         cap = _with_gaps(cap)
     jcfg, tcfg = _configs(impl, block_len)
@@ -141,7 +143,7 @@ def test_matches_jax_server(impl, scan_depth, max_channels, gaps):
     kw = dict(control=FakeControl(), scan_depth=scan_depth, max_channels=max_channels)
     jsrv = JaxServer(jcfg, JaxFileSource(cap), publisher=jpub, **kw)
     tsrv = CoherentServer(tcfg, FileSource(cap), publisher=tpub, device="cpu", **kw)
-    assert jsrv.run() == tsrv.run() == 12
+    assert jsrv.run() == tsrv.run() == n_blocks
     _assert_same_frames(jpub.frames, tpub.frames)
     jline, tline = jsrv.status().splitlines()[0], tsrv.status().splitlines()[0]
     assert jline == tline
