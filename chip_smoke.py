@@ -136,9 +136,9 @@ runs on a cluster of four CTAs (``csrc/fused_cluster.cuh``):
  19. (a) ``fused_measure_ref``, ``fused_measure_i8_spec``,
      ``fused_measure_i8`` and ``fused_apply_spec_i8`` against their plain
      versions at N = 21, T = 5, on random and correlated bytes (phase 2's
-     bars), and the entries still to be ported at m = 256 (kernel table
-     rows 4-7: ``apply_i8``, the four-step, the float pair) raising on the
-     card; (b) ``align_offline`` at T = 64 (1,323 windows, the sample count
+     bars), and on the same bytes the entries of kernel table rows 4-7
+     (``fused_apply_i8``, the four-step, the float pair) against theirs
+     (phase 20 (a)'s bars); (b) ``align_offline`` at T = 64 (1,323 windows, the sample count
      of phase 3): 1 + 1 + 1 launches a call, no plain run, samples/s over 7
      runs against 43.0e6, and the recompute measure on the same bytes, its
      scalars equal to the handoff's; (c) quality against synthetic truth
@@ -150,13 +150,35 @@ runs on a cluster of four CTAs (``csrc/fused_cluster.cuh``):
      21 / 21, the frame bars, bit-equal to the packed runner, one launch of
      each kernel a block.
 
-Every phase prints one JSON line (phase 19 one a part); a failed check
-raises, so the exit code is not 0. Before the last line it prints the
-ptxas report of every kernel (registers, stack, spills; the eighteen
-tensor-core instantiations of the measure and apply kernels, eleven
-measure and seven apply, must use no stack and spill nothing), the card's
-name and power limit and a JSON summary of thirteen kernel entries, the
-nine kernels and the four m = 256 ones (times, launches, errors, and the
+The generic path, ``FusedSpectral`` and the recompute pair at L = 32768
+(m = 256), on the cluster kernels of kernel table rows 4-7:
+
+ 20. (a) ``fused_apply_i8``, the four-step forward and inverse and the
+     float pair against their plain versions at N = 21, T = 5, on random
+     and correlated bytes (phases 8 and 14's bars; the four-step also
+     against torch.fft); (b) ``align_offline`` with ``fft_impl="pallas"``
+     and ``phase_slope`` at T = 64 (1,323 windows): 2 + 2 four-step
+     launches a call, no plain run, samples/s over 7 runs against 43.0e6,
+     ``xla`` (cuFFT) beside it, peak memory, one call under
+     torch.profiler, and generic quality at T = 16 by phase 10's bars;
+     (c) ``FusedSpectral`` prepare -> measure -> correct at T = 64, by its
+     launch counts, the float kernels against
+     their plain versions at those shapes, timed over 3 calls; (d) the
+     recompute pair on (b)'s bytes, held to the handoff pair by phase 14's
+     contract; (e) each of the four kernels timed against its plain
+     version in turns (the four-step at B = 1,323, forward and inverse,
+     beside torch.fft) and two calls of each under torch.profiler; (f) the
+     generic server (``pallas``) on phase 19's capture, 64 blocks at scan
+     depth 8: 21 / 21, phase 16's frame bars on the last 16 frames, 2 + 2
+     four-step launches a block.
+
+Every phase prints one JSON line (phases 19 and 20 one a part); a failed
+check raises, so the exit code is not 0. Before the last line it prints the
+ptxas report of every kernel (registers, stack, spills; the twenty-seven
+tensor-core instantiations, twelve measure, nine apply and six four-step
+ones, must use no stack and spill nothing), the card's name and power
+limit and a JSON summary of seventeen kernel entries, the nine kernels
+and the eight m = 256 ones (times, launches, errors, and the
 bound from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and
 bf16 operations over 989 TFLOP/s); the last line is ``{"ok": true,
 "device": {...}}``. Needs a CUDA device and the repository's package next
@@ -228,8 +250,8 @@ def cuda_ms(fn, reps=1):
 def device_profile(fn):
     """Wall time (ms) of ``fn()`` to a synchronize, and the device time of
     the kernels it ran (from torch.profiler): total, idle share of the wall
-    time, the five largest by name, and each of the port's fused kernels
-    (``fused::name<m, ...>``)."""
+    time, the five largest by name, and each of the port's kernels
+    (``fused::name<m, ...>``, ``fourstep::name<...>``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -245,7 +267,7 @@ def device_profile(fn):
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     fused = {name.split("(")[0].removeprefix("void "): ms for name, ms in by_name.items()
-             if "fused::" in name}
+             if "fused::" in name or "fourstep::" in name}
     return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
                 kernel_names=len(by_name), top_ms=dict(top), fused_kernel_ms=fused)
 
@@ -405,16 +427,18 @@ def synth_raw(n_blocks, block_len, n_ch, seed, dev):
     return raw, ref_raw, cap
 
 
-def small_blocks(m, g, dev):
+def small_blocks(m, g, dev, seed=None):
     """The kernel-vs-plain inputs at m (N = 21, T = 5): random bytes drawn
-    from ``g``, and the synthesizer's correlated bytes (seed m)."""
+    from ``g``, and the synthesizer's correlated bytes (``seed``, by
+    default m)."""
     return {
         "random": (
             torch.randint(-128, 128, (5, N_CH, m // 2, 2 * m), generator=g, device=dev,
                           dtype=torch.int8),
             torch.randint(-128, 128, (5, m // 2, 2 * m), generator=g, device=dev,
                           dtype=torch.int8)),
-        "correlated": synth_raw(5, m * m // 2, N_CH, seed=m, dev=dev)[:2],
+        "correlated": synth_raw(5, m * m // 2, N_CH, seed=m if seed is None else seed,
+                                dev=dev)[:2],
     }
 
 
@@ -1840,17 +1864,45 @@ T19 = 64                             # align_offline blocks: 1,323 windows a cal
 SERVER19_WINDOW = {1: 64, 32: 128}   # blocks a timed window, by scan depth
 
 
+def hold_rows_4_to_7(k, fk, raw, ref_raw, g, where):
+    """Kernel table rows 4-7 against their plain versions on the same
+    inputs: ``fused_apply_i8`` by the wire bars (advances of -1500.25 and
+    1023.5 among the windows), the four-step forward and inverse on the
+    channel windows of the bytes (hold_fourstep: FFT_PLAIN_REL, and
+    FFT_LIB_REL against torch.fft), and the float pair on the planes of the
+    same bytes (hold_float_measure, hold_float_apply)."""
+    from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64
+
+    T, n = raw.shape[:2]
+    m = k.m
+    adv = (torch.rand((T - 1, n), generator=g, device=raw.device) - 0.5) * 80.0
+    adv[0, 0], adv[0, 1] = -1500.25, 1023.5
+    ph = torch.rand((T - 1, n), generator=g, device=raw.device) * 6.283185307179586
+    args = (adv, torch.cos(ph), torch.sin(ph))
+    mx, share = compare_wire(k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args),
+                             where + " apply_i8")
+    errs = dict(apply_i8_wire_max_lsb=mx, apply_i8_wire_share_gt1=share)
+    sig = i8_iq_to_c64(raw.reshape(T, n, m * m // 2, 2))
+    errs.update(hold_fourstep(fk, torch.cat([sig[:-1], sig[1:]], dim=-1).reshape(-1, m * m),
+                              where))
+    planes = planes_from_i8(raw, ref_raw, fk)
+    errs.update(hold_float_measure(k, planes, where))
+    errs.update(hold_float_apply(k, planes, adv, where))
+    return errs
+
+
 def phase19_kernels(dev, k):
-    """Phase 19 (a): the four m = 256 kernels against their plain versions
-    at N = 21, T = 5 on random and correlated bytes, by phase 2's bars
-    (fused_measure_i8 held alone on the reference kernel's R, as
-    hold_measure holds fused_measure_i8_spec); then the entries of kernel
-    table rows 4-7, still to be ported at m = 256, raising on the card with
-    nothing launched."""
+    """Phase 19 (a): the four m = 256 kernels of the fused path against
+    their plain versions at N = 21, T = 5 on random and correlated bytes,
+    by phase 2's bars (fused_measure_i8 held alone on the reference
+    kernel's R, as hold_measure holds fused_measure_i8_spec); then, on the
+    same bytes, the entries of kernel table rows 4-7 against theirs
+    (hold_rows_4_to_7)."""
     from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
-    from coherent_rtlsdr_tpu_torch.kernels.fourstep import FFT4StepKernel
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import get_fourstep_kernel
 
     out = []
+    fk = get_fourstep_kernel(M19 * M19, dev)
     g = torch.Generator(device=dev).manual_seed(M19)
     for kind, (raw, ref_raw) in small_blocks(M19, g, dev).items():
         where = f"m=256 {kind}"
@@ -1863,31 +1915,9 @@ def phase19_kernels(dev, k):
         adv[0, 0], adv[0, 1] = -1500.25, 1023.5
         ph = torch.rand((4, N_CH), generator=g, device=dev) * 6.283185307179586
         errs.update(hold_apply(k, (want[5], want[6], adv, torch.cos(ph), torch.sin(ph)), where))
-        out.append(dict(m=M19, N=N_CH, T=5, inputs=kind, **errs))
-    fk = FFT4StepKernel(M19 * M19, dev)
-    raw = torch.zeros((5, N_CH, M19 // 2, 2 * M19), dtype=torch.int8, device=dev)
-    one = torch.zeros((4, N_CH), device=dev)
-    planes = torch.zeros((5, N_CH, M19 // 2, M19), dtype=torch.bfloat16, device=dev)
-    spec = torch.zeros((4, M19, M19), dtype=torch.bfloat16, device=dev)
-    x = torch.zeros((4, M19 * M19), dtype=torch.complex64, device=dev)
-    calls = {4: lambda: k.apply_i8(raw, one, one, one), 5: lambda: fk.fft(x),
-             6: lambda: k.measure(planes, planes, spec, spec),
-             7: lambda: k.apply(planes, planes, one)}
-    k.reset_counts()
-    raised = {}
-    for row, call in calls.items():
-        try:
-            call()
-        except ValueError as e:
-            if f"row {row}" not in str(e):
-                raise AssertionError(f"row {row} at m = 256 raised without its row: {e}") from e
-            raised[f"row {row}"] = str(e)
-        else:
-            raise AssertionError(f"kernel table row {row} ran at m = 256")
-    torch.cuda.synchronize()
-    if any(k.counts().values()) or any(fk.counts().values()):
-        raise AssertionError(f"rows 4-7 at m = 256 ran something: {k.counts()}, {fk.counts()}")
-    return out, raised
+        out.append(dict(m=M19, N=N_CH, T=5, inputs=kind, **errs,
+                        rows_4_to_7=hold_rows_4_to_7(k, fk, raw, ref_raw, g, where)))
+    return out
 
 
 def phase19_server(dev, smi, cfg, k):
@@ -1898,7 +1928,7 @@ def phase19_server(dev, smi, cfg, k):
     synced, contiguous ref seqnums, phase 16's frame bars on the last 16
     frames, the first frames bit-equal to the packed runner's on the same
     bytes, one launch of each kernel a block and no plain run. Returns
-    (the record, the launches of all its runs)."""
+    (the record, the launches of all its runs, the capture)."""
     need = 2 * SERVER_WARM + (SERVER_WINDOWS + 1) * SERVER19_WINDOW[32]
     t0 = time.perf_counter()
     cap, _ = render_capture(need, dev, block_len=L19)
@@ -1934,21 +1964,21 @@ def phase19_server(dev, smi, cfg, k):
     if not out["scan_depth_32"]["realtime"]:
         raise AssertionError(f"server L=32768 K=32 below real time: "
                              f"{out['scan_depth_32']['samples_per_s']}")
-    return out, launches
+    return out, launches, cap
 
 
 def phase_l32768(dev, smi):
     """Phase 19: the fused main path at L = 32768 (m = 256), N = 21, through
-    the four cluster kernels: (a) each against its plain version, rows 4-7
-    raising; (b) align_offline at T = 64 (1,323 windows), 1 + 1 + 1 launches
+    the four cluster kernels: (a) each against its plain version, and rows
+    4-7 against theirs; (b) align_offline at T = 64 (1,323 windows), 1 + 1 + 1 launches
     a call and no plain run, samples/s over 7 runs against 43.0e6, and the
     recompute measure (measure_ref, then fused_measure_i8) on the same
     bytes, its scalars equal to the handoff's; (c) quality against
     synthetic truth by phase 4's bars; (d) each kernel against its plain
     version at (b)'s shapes, timed in turns (phase 6's scheme), and two
-    calls of each under torch.profiler; (e) the server (phase19_server). Each part emits
-    one line. Returns the data of the kernels line's four m = 256
-    entries."""
+    calls of each under torch.profiler; (e) the server (phase19_server).
+    Each part emits one line. Returns the data of the kernels line's four
+    m = 256 entries of the fused path, and (e)'s capture."""
     from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
     from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
     from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
@@ -1959,8 +1989,8 @@ def phase_l32768(dev, smi):
     base = dict(phase="l32768", card=smi, N=N_CH, L=L19, m=M19)
 
     # (a)
-    results, raised = phase19_kernels(dev, k)
-    emit(dict(base, part="kernel_vs_plain", results=results, unported_raise=raised))
+    results = phase19_kernels(dev, k)
+    emit(dict(base, part="kernel_vs_plain", results=results))
 
     # (b)
     raw, ref_raw, cap = synth_raw(T19, L19, N_CH, seed=19, dev=dev)
@@ -2070,7 +2100,7 @@ def phase_l32768(dev, smi):
     del meas, R, eref, res, raw, ref_raw, cap, sig_u8, ref_u8
 
     # (e)
-    rec_e, counts_server = phase19_server(dev, smi, cfg, k)
+    rec_e, counts_server, cap_e = phase19_server(dev, smi, cfg, k)
     emit(dict(base, part="server", fft_impl="fused", **rec_e))
 
     launches = {name: counts_offline[name] + counts_rec[name] + counts_server[name]
@@ -2083,7 +2113,244 @@ def phase_l32768(dev, smi):
                 err=dict(measure_ref=worst("R_max_abs_err"),
                          measure=worst("lag_max_abs_err"),
                          measure_i8=worst("measure_i8_lag_max_abs_err"),
-                         apply=worst("wire_max_lsb")))
+                         apply=worst("wire_max_lsb"))), cap_e
+
+
+SERVER20_BLOCKS = 64   # generic server blocks at scan depth 8
+
+
+def phase_generic_l32768(dev, smi, cap19):
+    """Phase 20: the generic path, FusedSpectral and the recompute pair at
+    L = 32768 (m = 256), N = 21, on the cluster kernels of kernel table
+    rows 4-7: (a) each against its plain version at T = 5; (b) the generic
+    offline engine (pallas, phase_slope) at T = 64, 2 + 2 four-step launches
+    a call and no plain run, samples/s over 7 runs against 43.0e6 beside
+    xla, peak memory, a profile, and quality at T = 16 by phase 10's bars; (c)
+    FusedSpectral at T = 64 by its launch counts and the float kernels'
+    bars, timed over 3 calls; (d) the recompute pair on (b)'s bytes by
+    phase 14's contract; (e) each kernel timed against its plain version
+    in turns and twice under torch.profiler; (f) the generic server on
+    phase 19's capture ``cap19`` (scan depth 8). Each part emits one line.
+    Returns the data of the kernels line's four m = 256 entries of rows
+    4-7."""
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.kernels.backend import FusedSpectral
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import get_fourstep_kernel
+    from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
+    from coherent_rtlsdr_tpu_torch.ops.convert import u8_to_c64
+    from coherent_rtlsdr_tpu_torch.ops.phase import unit_phasor
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.signal.sources import FileSource
+
+    gcfg = PipelineConfig(n_channels=N_CH, block_len=L19, **GENERIC)
+    k = get_fused_kernels(2 * L19, dev)
+    fk = get_fourstep_kernel(2 * L19, dev)
+    base = dict(phase="generic_l32768", card=smi, N=N_CH, L=L19, m=M19)
+
+    # (a) Other bytes than phase 19 (a)'s hold of the same kernels.
+    g = torch.Generator(device=dev).manual_seed(M19 + 20)
+    results = [dict(T=5, inputs=kind, **hold_rows_4_to_7(k, fk, raw, ref_raw, g,
+                                                          f"phase 20 m=256 {kind}"))
+               for kind, (raw, ref_raw) in small_blocks(M19, g, dev, seed=M19 + 20).items()]
+    emit(dict(base, part="kernel_vs_plain", results=results))
+
+    # (b)
+    raw, ref_raw, cap = synth_raw(T19, L19, N_CH, seed=20, dev=dev)
+    sig_u8 = cap.sig_u8.reshape(T19, N_CH, 2 * L19)
+    ref_u8 = cap.ref_u8.reshape(T19, 2 * L19)
+    offline_run(gcfg, sig_u8, ref_u8)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gres = None
+
+    def drive_generic():
+        nonlocal gres
+        gres = offline_run(gcfg, sig_u8, ref_u8)
+
+    fk.reset_counts()
+    k.reset_counts()
+    g_runs = [cuda_ms(drive_generic) for _ in range(7)]
+    counts_off = fk.counts()
+    launched_only(counts_off, dict(fft_launches=14, ifft_launches=14), "generic offline L=32768")
+    launched_only(k.counts(), {}, "generic offline L=32768 (fused kernels)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms_g = statistics.median(g_runs)
+    samples = (T19 - 1) * N_CH * L19
+    rate = samples / ms_g * 1e3
+    g_err = float(abs(gres.delay[0].cpu().numpy() - cap.truth.delays).max())
+    if not (tuple(gres.aligned.shape) == (T19 - 1, N_CH, L19)
+            and torch.isfinite(gres.lag).all() and g_err < GEN_LAG_MAX
+            and gres.mag.min().item() > 0.5 and rate >= REALTIME_SAMPLES_S):
+        raise AssertionError(f"generic offline L=32768: {rate} samples/s, max |delay - truth| "
+                             f"{g_err}, min mag {gres.mag.min().item()}")
+    del gres
+    xcfg = PipelineConfig(n_channels=N_CH, block_len=L19, fft_impl="xla",
+                          lag_method="phase_slope")
+    offline_run(xcfg, sig_u8, ref_u8)   # warm-up
+    x_runs = [cuda_ms(lambda: offline_run(xcfg, sig_u8, ref_u8)) for _ in range(3)]
+    _, _, q_cap = synth_raw(16, L19, N_CH, seed=7, dev=dev)
+    gq = offline_run(gcfg, q_cap.sig_u8.reshape(16, N_CH, 2 * L19),
+                     q_cap.ref_u8.reshape(16, 2 * L19))
+    z = (gq.aligned * gq.ref.conj()[:, None, :]).sum(-1)
+    q_deg = torch.rad2deg(torch.angle(z))[2:].double()
+    q_lag = gq.delay[2:].double().cpu() - torch.from_numpy(q_cap.truth.delays).double()[None]
+    quality = dict(T=16, phase_err_deg_rms=q_deg.pow(2).mean().sqrt().item(),
+                   residual_lag_rms_samples=q_lag.pow(2).mean().sqrt().item(),
+                   phase_err_deg_max=q_deg.abs().max().item(),
+                   lag_err_max_samples=q_lag.abs().max().item(),
+                   bars=[GEN_PHASE_MAX_DEG, GEN_LAG_MAX])
+    if not (quality["phase_err_deg_max"] <= GEN_PHASE_MAX_DEG
+            and quality["lag_err_max_samples"] <= GEN_LAG_MAX):
+        raise AssertionError(f"generic quality L=32768: {quality}")
+    del gq, z, q_cap
+    emit(dict(base, part="offline", T=T19, **GENERIC, smoothing="global", ms_median=ms_g,
+              ms_runs=g_runs, samples_per_s=rate, realtime_x=rate / REALTIME_SAMPLES_S,
+              peak_mem_gb=peak, max_abs_delay_minus_truth=g_err, launches=counts_off,
+              xla_cufft=dict(ms_median=statistics.median(x_runs), ms_runs=x_runs,
+                             samples_per_s=samples / statistics.median(x_runs) * 1e3),
+              quality=quality, profile=device_profile(lambda: offline_run(gcfg, sig_u8, ref_u8))))
+
+    # (c)
+    sig_c = u8_to_c64(sig_u8.reshape(T19, N_CH, L19, 2))
+    ref_c = u8_to_c64(ref_u8.reshape(T19, L19, 2))
+    fsp = FusedSpectral(2 * L19, dev)
+    fctx = fest = fy = None
+
+    def drive_fsp():
+        nonlocal fctx, fest, fy
+        fy = None   # the previous call's output, freed before the next one
+        fctx = fsp.prepare(sig_c, ref_c)
+        fest = fsp.measure(fctx, "phase_zoom")
+        fy = fsp.correct(fctx, fest.lag)
+
+    fk.reset_counts()
+    k.reset_counts()
+    drive_fsp()
+    torch.cuda.synchronize()
+    counts_fsp = {**fk.counts(), **k.counts()}
+    launched_only(fk.counts(), dict(fft_launches=1), "FusedSpectral L=32768 (four-step)")
+    launched_only(k.counts(), dict(measure_launches=1, apply_launches=1),
+                  "FusedSpectral L=32768 (float measure/apply)")
+    f_err = float(abs(fest.lag.median(dim=0).values.cpu().numpy() - cap.truth.delays).max())
+    if not (tuple(fy.shape) == (T19 - 1, N_CH, L19)
+            and torch.isfinite(torch.view_as_real(fy)).all()
+            and f_err < GEN_LAG_MAX and fest.mag.min().item() > 0.5):
+        raise AssertionError(f"FusedSpectral L=32768 output wrong: lag {f_err}, "
+                             f"min mag {fest.mag.min().item()}")
+    fsp_runs = [cuda_ms(drive_fsp) for _ in range(3)]
+    del fy
+    errs = hold_float_measure(k, fctx, "FusedSpectral L=32768")
+    errs.update(hold_float_apply(k, fctx, fest.lag, "FusedSpectral L=32768"))
+    emit(dict(base, part="fused_spectral", T=T19, ms_median=statistics.median(fsp_runs),
+              ms_runs=fsp_runs, launches={name: n for name, n in counts_fsp.items() if n},
+              max_abs_median_lag_minus_truth=f_err, mag_min=fest.mag.min().item(),
+              kernel_vs_plain=dict(errs)))
+
+    # (d)
+    k.reset_counts()
+    rec = k.measure_i8(raw, ref_raw)
+    pc = unit_phasor(torch.complex(rec[1], -rec[2]))
+    p_re, p_im = pc.real.contiguous(), pc.imag.contiguous()
+    wire_r = k.apply_i8(raw, rec[0], p_re, p_im)
+    torch.cuda.synchronize()
+    counts_rec = k.counts()
+    launched_only(counts_rec, dict(measure_ref_launches=1, measure_i8_launches=1,
+                                   apply_i8_launches=1), "recompute pair L=32768")
+    rec_deg = wire_phase_deg(wire_r, ref_raw)
+    if not (wire_r.shape == (T19 - 1, *raw.shape[1:])
+            and all(torch.isfinite(x).all() for x in rec) and rec[3].min().item() > 0.5
+            and rec_deg.abs().max().item() <= RECOMPUTE_PHASE_MAX_DEG):
+        raise AssertionError(f"recompute pair L=32768 output wrong: min mag "
+                             f"{rec[3].min().item()}, max |phase| "
+                             f"{rec_deg.abs().max().item()} deg")
+    spec = k.measure_i8_spec(raw, ref_raw)
+    contract = hold_handoff_contract(rec, wire_r, spec[:5],
+                                     k.apply_spec_i8(spec[5], spec[6], rec[0], p_re, p_im))
+    del spec
+    mx, share = compare_wire(wire_r, k.apply_i8_plain(raw, rec[0], p_re, p_im),
+                             "apply_i8 L=32768 offline shapes")
+    errs.update(apply_i8_wire_max_lsb=mx, apply_i8_wire_share_gt1=share)
+    emit(dict(base, part="recompute_pair", T=T19, launches=counts_rec,
+              mag_min=rec[3].min().item(), wire_phase_deg_max=rec_deg.abs().max().item(),
+              wire_phase_deg_rms=rec_deg.pow(2).mean().sqrt().item(),
+              handoff_contract=contract, apply_i8_vs_plain=dict(wire_max_lsb=mx,
+                                                                 wire_share_gt1=share)))
+    del wire_r
+
+    # (e)
+    w_sig = torch.cat([sig_c[:-1], sig_c[1:]], dim=-1).reshape(-1, 2 * L19)
+    B = w_sig.shape[0]
+    errs.update(hold_fourstep(fk, w_sig, "four-step L=32768 offline shapes"))
+    Xw = fk.fft(w_sig)
+    adv = fest.lag.contiguous()
+    fns = {
+        "fft": lambda: fk.fft(w_sig), "fft_plain": lambda: fk.fft_plain(w_sig),
+        "fft_lib": lambda: torch.fft.fft(w_sig),
+        "ifft": lambda: fk.ifft(Xw), "ifft_plain": lambda: fk.ifft_plain(Xw),
+        "ifft_lib": lambda: torch.fft.ifft(w_sig),
+        "apply_i8": lambda: k.apply_i8(raw, rec[0], p_re, p_im),
+        "apply_i8_plain": lambda: k.apply_i8_plain(raw, rec[0], p_re, p_im),
+        "measure": lambda: k.measure(*fctx), "measure_plain": lambda: k.measure_plain(*fctx),
+        "apply": lambda: k.apply(fctx.pre, fctx.pim, adv),
+        "apply_plain": lambda: k.apply_plain(fctx.pre, fctx.pim, adv),
+    }
+    ms, runs = timed_interleaved({n: f for n, f in fns.items() if n.startswith(("fft", "ifft"))},
+                                 ("fft", "ifft"), ("_plain", "", "_lib"), reps=FFT_REPS)
+    ms_k, runs_k = timed_interleaved(
+        {n: f for n, f in fns.items() if not n.startswith(("fft", "ifft"))},
+        ("apply_i8", "measure", "apply"), ("_plain", ""))
+    ms.update(ms_k)
+    runs.update(runs_k)
+    kernel_names = {"fft": "fourstep::fourstep_cluster_kernel<false>",
+                    "ifft": "fourstep::fourstep_cluster_kernel<true>",
+                    "apply_i8": "fused::apply_i8_cluster_kernel",
+                    "measure": "fused::measure_planes_cluster_kernel",
+                    "apply": "fused::apply_planes_cluster_kernel"}
+
+    def profiled():   # opens with sleep kernels, as phase 19 (d) explains
+        for _ in range(8):
+            torch.cuda._sleep(1_000_000)
+        for name in kernel_names:
+            for _ in range(2):
+                fns[name]()
+
+    prof = device_profile(profiled)["fused_kernel_ms"]
+    device_ms = {name: prof[kn] / 2 if kn in prof else None for name, kn in kernel_names.items()}
+    emit(dict(base, part="kernel_times", T=T19, B=B, ms=ms, runs=runs, fft_reps=FFT_REPS,
+              device_ms=device_ms, kernel_vs_plain=errs,
+              kernel_over_torch_fft=dict(fft=ms["fft"] / ms["fft_lib"],
+                                         ifft=ms["ifft"] / ms["ifft_lib"])))
+    del fns, Xw, w_sig, fctx, fest, rec, raw, ref_raw, cap, sig_c, ref_c, sig_u8, ref_u8
+
+    # (f)
+    where = "generic server L=32768"
+    pub = RecordingPublisher()
+    gsrv = CoherentServer(gcfg, FileSource(sub_capture(cap19, 0, SERVER20_BLOCKS)),
+                          publisher=pub, control=QueueControl(), scan_depth=8, device=dev)
+    fk.reset_counts()
+    k.reset_counts()
+    n = gsrv.run()
+    counts_server = fk.counts()
+    launched_only(counts_server, dict(fft_launches=2 * n, ifft_launches=2 * n), where)
+    launched_only(k.counts(), {}, where + " (fused kernels)")
+    if n != SERVER20_BLOCKS:
+        raise AssertionError(f"{where}: published {n} of {SERVER20_BLOCKS} blocks")
+    contiguous(pub.ref_seqs, 1, where)
+    emit(dict(base, part="server", **GENERIC, scan_depth=8, blocks_served=n,
+              launches=counts_server, status=synced_line(gsrv, N_CH, where),
+              frames=check_frames(pub.last, N_CH, where, block_len=L19)))
+
+    fwd = (counts_off["fft_launches"] + counts_fsp["fft_launches"]
+           + counts_server["fft_launches"])
+    inv = counts_off["ifft_launches"] + counts_server["ifft_launches"]
+    worst = lambda key: max(max(r[key] for r in results), errs[key])
+    return dict(
+        B=B, ms=ms, device_ms=device_ms,
+        launches=dict(apply_i8=counts_rec["apply_i8_launches"], fft=fwd + inv,
+                      measure=counts_fsp["measure_launches"], apply=counts_fsp["apply_launches"]),
+        err=dict(apply_i8=worst("apply_i8_wire_max_lsb"),
+                 fft=max(worst("fwd_max_abs_err"), worst("inv_max_abs_err")),
+                 measure=worst("lag_max_abs_err"), apply=worst("y_max_abs_err")))
 
 
 def main():
@@ -2513,7 +2780,12 @@ def main():
 
     # 19. The fused main path at L = 32768 (m = 256): the four cluster
     # kernels, the offline engine, quality and the server.
-    p19 = phase_l32768(dev, smi)
+    p19, cap19 = phase_l32768(dev, smi)
+
+    # 20. The generic path, FusedSpectral and the recompute pair at
+    # L = 32768: rows 4-7 on their cluster kernels, and the generic server.
+    p20 = phase_generic_l32768(dev, smi, cap19)
+    del cap19
 
     # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15,
     # 16, 17 and 18 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
@@ -2525,9 +2797,12 @@ def main():
     # the offline shapes (phases 6, 13, 14 and 15). device_ms: the kernel's
     # time under torch.profiler (phase 7 for the handoff apply, 13 for the
     # float pair). bound_ms, bound_by: tools/cost_model.py at those shapes.
-    # The four "@256" entries: phase 19 alone (launches from (b), its
-    # recompute measure and (e); errors from (a) and (d); ms, plain_ms and
-    # device_ms from (d) at T = 64, N = 21, L = 32768).
+    # The eight "@256" entries: phase 19 for the fused path's four (launches
+    # from (b), its recompute measure and (e); errors from (a) and (d); ms,
+    # plain_ms and device_ms from (d) at T = 64, N = 21, L = 32768), phase 20
+    # for rows 4-7 (launches from (b), (c), (d) and (f); errors from (a) and
+    # the offline shapes; ms, plain_ms, library_ms and device_ms from (e),
+    # the four-step at B = 1,323).
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
                 + counts_server[c] + counts_ring[c] + counts_music[c] for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
@@ -2546,14 +2821,13 @@ def main():
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"] + counts_gserver["fft_launches"]
                          + counts_gserver["ifft_launches"])
-    # Registers, stack and spills of every kernel; the eighteen tensor-core
-    # instantiations (measure and apply) must use no stack and spill nothing.
+    # Registers, stack and spills of every kernel; the twenty-seven
+    # tensor-core instantiations (measure, apply, four-step) must use no
+    # stack and spill nothing.
     ptxas = {src: fused_cuda.ptxas_usage(report[src]) for src in fused_cuda.SOURCES}
     emit(dict(phase="ptxas", **ptxas))
     tc_ptxas = {name: ptxas[src].get(name)
-                for src, names in (("fused_measure.cu", fused_cuda.TC_MEASURE_KERNELS),
-                                   ("fused_apply.cu", fused_cuda.TC_APPLY_KERNELS))
-                for name in names}
+                for src, names in fused_cuda.TC_KERNELS.items() for name in names}
     spilled = [name for name, u in tc_ptxas.items()
                if u is None or u["stack"] or u["spill_stores"] or u["spill_loads"]]
     if spilled:
@@ -2604,6 +2878,22 @@ def main():
                cost_model.measure_i8(T19, N_CH, M19), "measure_i8", "measure_i8"),
               ("fused_apply_spec_i8", "fused_apply.cu", 392,
                cost_model.apply_spec_i8(T19, N_CH, M19), "apply_spec_i8", "apply"))],
+        *[entry(f"{name}@256", source, tpu + replaces, cost, p20["launches"][base],
+                p20["err"][base], p20["ms"][base], p20["ms"][base + "_plain"],
+                device_ms=p20["device_ms"][base], **extra)
+          for name, source, replaces, cost, base, extra in (
+              ("fused_apply_i8", "fused_apply.cu", "pallas_fused.py:447",
+               cost_model.apply_i8(T19, N_CH, M19), "apply_i8", {}),
+              ("fourstep_fft", "fourstep.cu", "pallas_fft.py:32",
+               cost_model.fourstep(p20["B"], M19), "fft",
+               dict(lib=p20["ms"]["fft_lib"], ms_inverse=p20["ms"]["ifft"],
+                    plain_ms_inverse=p20["ms"]["ifft_plain"],
+                    library_ms_inverse=p20["ms"]["ifft_lib"],
+                    device_ms_inverse=p20["device_ms"]["ifft"])),
+              ("fused_measure_planes", "fused_measure.cu", "pallas_fused.py:185",
+               cost_model.measure_planes(T19, N_CH, M19), "measure", {}),
+              ("fused_apply_planes", "fused_apply.cu", "pallas_fused.py:220",
+               cost_model.apply_planes(T19, N_CH, M19), "apply", {}))],
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

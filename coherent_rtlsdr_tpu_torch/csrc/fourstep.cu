@@ -40,7 +40,22 @@
 //   * Stores: 16-byte, four neighbouring threads on 64 contiguous bytes
 //     (forward) or eight on 128 (inverse, after the staging tile).
 // Shared memory at m = 128: 64 kB tables + 2 x 64 kB windows + 9 kB staging.
+//
+// m = 256 (W = 65536): the packed bf16 table alone is 256 kB, more than a
+// CTA may hold, so fourstep_cluster_kernel runs a transform on a cluster of
+// four CTAs of 16 warps, as the m = 256 measure and apply kernels do
+// (fused_cluster.cuh), reading F or Fi as bf16-exact float32 pairs from L2
+// into the products' fragments. Forward: forward_cluster over the strips of
+// x (StripC64: A = bf16(x)), its epilogue writing row block p of D as
+// complex64. Inverse: G = bf16(X) on row block p (load_block_c64), then
+// inverse_cluster over all m rows, each CTA writing the 64 columns n1 of
+// its strip of x in natural order. Shared memory 131,072 bytes; one
+// cluster a transform, no persistent grid. What bounds it: the bytes
+// (1.05 MB a transform in and out, 0.41 ms at B = 1,323) against 0.36 ms
+// of products at the bf16 peak; the table operands from L2 (~3 MB a CTA,
+// as in the measure) weigh on it more than either.
 
+#include "fused_cluster.cuh"
 #include "tc_common.cuh"
 
 namespace fourstep {
@@ -217,12 +232,55 @@ int launch(const void* x, const void* tab, const void* Tw, void* y, int B, void*
   return cudaGetLastError();
 }
 
+// m = 256: the cluster of transform b = blockIdx.x / 4 of x [B, m, m]
+// complex64 into y[b], with the float32-pair table F (forward) or Fi
+// (inverse) [m, m] and the twiddle Tw.
+template <bool INVERSE>
+__global__ void __cluster_dims__(fused::cl::kRanks, 1, 1)
+    __launch_bounds__(fused::cl::kThreads, 1)
+fourstep_cluster_kernel(const float2* __restrict__ x, const float2* __restrict__ tab,
+                        const float2* __restrict__ Tw, float2* __restrict__ y) {
+  using namespace fused::cl;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const size_t b = blockIdx.x / kRanks;
+  const float2* xb = x + b * kW;
+  float2* yb = y + b * kW;
+  if constexpr (INVERSE) {
+    load_block_c64(xb, p, X);
+    __syncthreads();
+    inverse_cluster<0, kM>(tab, Tw, X, Y, [&](int r, int c, float4 v) {
+      __stcs(reinterpret_cast<float4*>(yb + r * kM + kPart * p + c), v);
+    });
+  } else {
+    float2* dp = yb + static_cast<size_t>(kPart) * p * kM;
+    forward_cluster(StripC64{xb}, tab, Tw, X, Y, [&](int r, int c, float4 d) {
+      __stcs(reinterpret_cast<float4*>(dp + r * kM + c), d);
+    });
+  }
+}
+
+template <bool INVERSE>
+int launch_cluster(const void* x, const void* tab, const void* Tw, void* y, int B, void* stream) {
+  const int smem = static_cast<int>(2 * fused::cl::kBuf);
+  const cudaError_t err = fused::set_smem(fourstep_cluster_kernel<INVERSE>, smem);
+  if (err != cudaSuccess) return err;
+  fourstep_cluster_kernel<INVERSE><<<fused::cl::kRanks * B, fused::cl::kThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<const float2*>(tab),
+      static_cast<const float2*>(Tw), static_cast<float2*>(y));
+  return cudaGetLastError();
+}
+
 }  // namespace fourstep
 
-// x, y complex64 [B, m, m] (B >= 1); tab the bf16 [2, m, m] (re, im) planes
-// of F (inverse = 0) or Fi = conj(F)/m (inverse = 1), bf16-rounded; Tw the
-// twiddle, float2 [m, m]; all 16-byte aligned. Returns the CUDA error code of
-// the launch (0 on success); -1 for an unsupported m or B < 1.
+// x, y complex64 [B, m, m] (B >= 1); tab the table of F (inverse = 0) or
+// Fi = conj(F)/m (inverse = 1), bf16-rounded: at m in {64, 128} its bf16
+// [2, m, m] (re, im) planes, at m = 256 float2 [m, m]; Tw the twiddle,
+// float2 [m, m]; all 16-byte aligned. Returns the CUDA error code of the
+// launch (0 on success); -1 for an unsupported m or B < 1.
 extern "C" int fourstep_fft(const void* x, const void* tab, const void* Tw, void* y, int B,
                             int m, int inverse, void* stream) {
   if (B < 1) return -1;
@@ -235,6 +293,10 @@ extern "C" int fourstep_fft(const void* x, const void* tab, const void* Tw, void
       return fourstep::launch<128, false>(x, tab, Tw, y, B, stream);
     case 128 * 2 + 1:
       return fourstep::launch<128, true>(x, tab, Tw, y, B, stream);
+    case 256 * 2:
+      return fourstep::launch_cluster<false>(x, tab, Tw, y, B, stream);
+    case 256 * 2 + 1:
+      return fourstep::launch_cluster<true>(x, tab, Tw, y, B, stream);
     default:
       return -1;
   }

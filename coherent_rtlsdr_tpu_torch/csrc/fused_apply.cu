@@ -56,15 +56,21 @@
 // The load has no overlap with the products in the one-CTA kernels; the
 // persistent grid with producer warps is the model for that.
 //
-// m = 256 (W = 65536): apply_spec_cluster_kernel runs a window on a
-// cluster of four CTAs of 16 warps (fused_cluster.cuh), the mirror of the
-// measure's forward: CTA p weights row block p of D into G, computes row
-// block p of B2 = bf16((G Fi) * conj(T)), and after a cluster exchange the
-// centre rows of y = Fi B2 on strip p, 128 bytes of each wire row. Shared
-// memory 131,072 bytes: X (G, then the gathered strip of B2) and Y (B2's
-// row block, which the other CTAs gather). Fi comes from L2 as the
-// products' table operand. fused_apply_i8 and fused_apply_planes still
-// take m in {64, 128}.
+// m = 256 (W = 65536): every apply runs a window on a cluster of four CTAs
+// of 16 warps (fused_cluster.cuh), the inverse (inverse_cluster) the
+// mirror of the measure's forward: CTA p holds row block p of G, computes
+// row block p of B2 = bf16((G Fi) * conj(T)), and after a cluster exchange
+// the centre rows of y = Fi B2 on strip p, 128 bytes of each wire row (or
+// 64 float32 samples of each output row). G's row block comes from the
+// stored D (apply_spec_cluster_kernel) or from the forward transform
+// recomputed on the cluster (forward_cluster over StripI8 or StripPlanes;
+// apply_i8_cluster_kernel, apply_planes_cluster_kernel), whose epilogue
+// weights the float32 D into G over Y: once forward_cluster's last
+// barrier has passed, no other CTA reads Y. Shared memory 131,072 bytes:
+// two buffers of 64 kB, one holding G and then the gathered strip of B2,
+// the other the forward's window strip and C's row block, then B2's row
+// block, which the other CTAs gather. Fi and F come from L2 as the
+// products' table operands.
 
 #include "fused_cluster.cuh"
 #include "fused_common.cuh"
@@ -394,14 +400,39 @@ int launch_planes(const void* pre, const void* pim, const void* advance, const v
 
 // --- m = 256: a window a cluster of four CTAs (fused_cluster.cuh).
 
+// The wire epilogue of the m = 256 applies: output row n2 (in [m/4, 3m/4)),
+// columns c, c + 1 of strip p quantized to two wire pairs of the window's
+// block [m/2, 2m].
+struct ClusterWire {
+  int8_t* wire;
+  int p;
+
+  __device__ __forceinline__ void operator()(int r, int c, float4 y) const {
+    const uint32_t w = wire_pair(y.x, y.y) | (static_cast<uint32_t>(wire_pair(y.z, y.w)) << 16);
+    __stcs(reinterpret_cast<unsigned int*>(wire + (r - cl::kM / 4) * (2 * cl::kM) +
+                                           2 * (cl::kPart * p + c)),
+           w);
+  }
+};
+
+// The float epilogue of the m = 256 apply: samples (n2 - m/4) m + n1 of the
+// window's planes yre, yim [m/2, m], n1 = 64 p + c, c + 1.
+struct ClusterFloat {
+  float* yre;
+  float* yim;
+  int p;
+
+  __device__ __forceinline__ void operator()(int r, int c, float4 y) const {
+    const int o = (r - cl::kM / 4) * cl::kM + cl::kPart * p + c;
+    __stcs(reinterpret_cast<float2*>(yre + o), make_float2(y.x, y.z));
+    __stcs(reinterpret_cast<float2*>(yim + o), make_float2(y.y, y.w));
+  }
+};
+
 // The spectrum handoff at m = 256: the cluster of window b = blockIdx.x / 4
 // of dre, dim bf16 [B, m, m] (advance, phase_re, phase_im float [B]) writes
 // the wire block out[b] [m/2, 2m]. CTA rank p: row block p of G = bf16(D w)
-// (k2 in [64 p, 64 p + 64)) into X; C2 = G Fi on it, B2 = bf16(C2 *
-// conj(T)) into Y; a cluster barrier; strip p of B2 (columns n1 in [64 p,
-// 64 p + 64), every row k2) gathered into X; a cluster barrier; then the
-// centre rows n2 in [m/4, 3m/4) of y = Fi B2 on strip p, quantized to the
-// 128 bytes of each output row that hold samples n1 of the strip.
+// (k2 in [64 p, 64 p + 64)) into X, then inverse_cluster's centre rows.
 __global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
 apply_spec_cluster_kernel(const __nv_bfloat16* __restrict__ dre,
                           const __nv_bfloat16* __restrict__ dim,
@@ -409,13 +440,10 @@ apply_spec_cluster_kernel(const __nv_bfloat16* __restrict__ dre,
                           const float* __restrict__ phase_im, const float2* __restrict__ Fi,
                           const float2* __restrict__ Tw, int8_t* __restrict__ out) {
   using namespace cl;
-  namespace cg = cooperative_groups;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int p = static_cast<int>(cluster.block_rank());
-  const int warp = threadIdx.x >> 5;
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
   const size_t b = blockIdx.x / kRanks;
 
   // Row block p of G: 16-byte vectors of D (8 elements of a row), weighted.
@@ -453,35 +481,66 @@ apply_spec_cluster_kernel(const __nv_bfloat16* __restrict__ dre,
     }
   }
   __syncthreads();
-  // Row block p of B2: 4 row tiles x 8 column tiles.
-  for (int tile = warp; tile < (kPart / 16) * (kM / tc::kChunk); tile += kWarps) {
-    const int r0 = 16 * (tile % (kPart / 16));
-    const int c0 = tc::kChunk * (tile / (kPart / 16));
-    float are[kTiles][4], aim[kTiles][4];
-    block_x_table(X, X + kPlane, r0, Fi, c0, are, aim);
-    each_pair(are, aim, r0, c0, [&](int r, int c, float4 v) {
-      const float4 tw =
-          __ldg(reinterpret_cast<const float4*>(Tw + (kPart * p + r) * kM + c));
-      store_pair(Y, tc::swz<kM>(r, c), tc::twiddle<true>(v.x, v.y, tw.x, tw.y),
-                 tc::twiddle<true>(v.z, v.w, tw.z, tw.w));
-    });
-  }
-  cluster.sync();   // every row block of B2 complete; G read
-  gather_strip(Y, X);
-  cluster.sync();   // every strip gathered: no more remote reads
-  // The centre rows of y on strip p: 8 row tiles x 2 column tiles.
-  int8_t* wire = out + b * kW;
-  for (int tile = warp; tile < (kM / 2 / 16) * (kPart / tc::kChunk); tile += kWarps) {
-    const int r0 = kM / 4 + 16 * (tile / (kPart / tc::kChunk));
-    const int c0 = tc::kChunk * (tile % (kPart / tc::kChunk));
-    float yre[kTiles][4], yim[kTiles][4];
-    table_x_strip(Fi, r0, X, X + kPlane, c0, yre, yim);
-    each_pair(yre, yim, r0, c0, [&](int r, int c, float4 y) {
-      const uint32_t w = wire_pair(y.x, y.y) | (static_cast<uint32_t>(wire_pair(y.z, y.w)) << 16);
-      __stcs(reinterpret_cast<unsigned int*>(wire + (r - kM / 4) * (2 * kM) + 2 * (kPart * p + c)),
-             w);
-    });
-  }
+  inverse_cluster<kM / 4, kM / 2>(Fi, Tw, X, Y, ClusterWire{out + b * kW, p});
+}
+
+// The m = 256 recompute body: forward_cluster over the window's strip
+// loader `load`, its epilogue writing row block p of G = bf16(D w) from the
+// float32 D into Y (ramp: the window's Ramp), then inverse_cluster's
+// centre rows to `epi`.
+template <class Load, class Epi>
+__device__ __forceinline__ void apply_cluster_window(const Load& load, const Ramp<cl::kM>& ramp,
+                                                     const float2* __restrict__ F,
+                                                     const float2* __restrict__ Fi,
+                                                     const float2* __restrict__ Tw,
+                                                     const Epi& epi) {
+  using namespace cl;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  forward_cluster(load, F, Tw, X, Y, [&](int r, int c, float4 d) {
+    const uint2 gw = ramp.g_pair(kPart * p + r, c, make_float2(d.x, d.y), make_float2(d.z, d.w));
+    const int o = tc::swz<kM>(r, c);
+    *reinterpret_cast<uint32_t*>(Y + o) = gw.x;
+    *reinterpret_cast<uint32_t*>(Y + kPlane + o) = gw.y;
+  });
+  __syncthreads();   // G complete; C's row block in X read
+  inverse_cluster<kM / 4, kM / 2>(Fi, Tw, Y, X, epi);
+}
+
+// The recompute path at m = 256: the cluster of window b = blockIdx.x / 4
+// (b = t N + n) of the int8 blocks raw [T, N, m/2, 2m], with advance,
+// phase_re, phase_im float [T-1, N], writes the wire block out[b].
+__global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
+apply_i8_cluster_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advance,
+                        const float* __restrict__ phase_re, const float* __restrict__ phase_im,
+                        const float2* __restrict__ F, const float2* __restrict__ Fi,
+                        const float2* __restrict__ Tw, int8_t* __restrict__ out, int N) {
+  using namespace cl;
+  const size_t b = blockIdx.x / kRanks;
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  apply_cluster_window(StripI8{raw + b * kW, static_cast<size_t>(N) * kW},
+                       Ramp<kM>(advance[b], phase_re[b], phase_im[b]), F, Fi, Tw,
+                       ClusterWire{out + b * kW, p});
+}
+
+// The float path at m = 256: the cluster of window b = blockIdx.x / 4 of
+// the block planes pre/pim bf16 [T, N, m/2, m], with advance float
+// [T-1, N], writes the centre half yre[b], yim[b] float [m/2, m].
+__global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
+apply_planes_cluster_kernel(const __nv_bfloat16* __restrict__ pre,
+                            const __nv_bfloat16* __restrict__ pim,
+                            const float* __restrict__ advance, const float2* __restrict__ F,
+                            const float2* __restrict__ Fi, const float2* __restrict__ Tw,
+                            float* __restrict__ yre_out, float* __restrict__ yim_out, int N) {
+  using namespace cl;
+  const size_t b = blockIdx.x / kRanks;
+  const size_t top = b * (kW / 2);   // block t of channel n; also the window's output
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  apply_cluster_window(StripPlanes{pre + top, pim + top, static_cast<size_t>(N) * (kW / 2)},
+                       Ramp<kM>(advance[b], 1.f, 0.f), F, Fi, Tw,
+                       ClusterFloat{yre_out + top, yim_out + top, p});
 }
 
 int launch_cluster(const void* dre, const void* dim, const void* advance, const void* phase_re,
@@ -496,6 +555,36 @@ int launch_cluster(const void* dre, const void* dim, const void* advance, const 
       static_cast<const float*>(advance), static_cast<const float*>(phase_re),
       static_cast<const float*>(phase_im), static_cast<const float2*>(Fi),
       static_cast<const float2*>(Tw), static_cast<int8_t*>(out));
+  return cudaGetLastError();
+}
+
+int launch_i8_cluster(const void* raw, const void* advance, const void* phase_re,
+                      const void* phase_im, const void* F, const void* Fi, const void* Tw,
+                      void* out, int T1, int N, void* stream) {
+  const int smem = static_cast<int>(2 * cl::kBuf);
+  const cudaError_t err = set_smem(apply_i8_cluster_kernel, smem);
+  if (err != cudaSuccess) return err;
+  apply_i8_cluster_kernel<<<cl::kRanks * T1 * N, cl::kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(raw), static_cast<const float*>(advance),
+      static_cast<const float*>(phase_re), static_cast<const float*>(phase_im),
+      static_cast<const float2*>(F), static_cast<const float2*>(Fi),
+      static_cast<const float2*>(Tw), static_cast<int8_t*>(out), N);
+  return cudaGetLastError();
+}
+
+int launch_planes_cluster(const void* pre, const void* pim, const void* advance, const void* F,
+                          const void* Fi, const void* Tw, void* yre, void* yim, int T1, int N,
+                          void* stream) {
+  const int smem = static_cast<int>(2 * cl::kBuf);
+  const cudaError_t err = set_smem(apply_planes_cluster_kernel, smem);
+  if (err != cudaSuccess) return err;
+  apply_planes_cluster_kernel<<<cl::kRanks * T1 * N, cl::kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
+      static_cast<const float*>(advance), static_cast<const float2*>(F),
+      static_cast<const float2*>(Fi), static_cast<const float2*>(Tw), static_cast<float*>(yre),
+      static_cast<float*>(yim), N);
   return cudaGetLastError();
 }
 
@@ -526,8 +615,8 @@ extern "C" int fused_apply_spec_i8(const void* dre, const void* dim, const void*
 
 // raw int8 [T, N, m/2, 2m]; advance, phase_re, phase_im float [T-1, N];
 // tables F, Fi (bf16-rounded) and Tw float2 [m, m]; out int8
-// [T-1, N, m/2, 2m]. Returns the CUDA error code of the launch (0 on
-// success); -1 for an unsupported m.
+// [T-1, N, m/2, 2m]; m in {64, 128, 256}. Returns the CUDA error code of
+// the launch (0 on success); -1 for an unsupported m.
 extern "C" int fused_apply_i8(const void* raw, const void* advance, const void* phase_re,
                               const void* phase_im, const void* F, const void* Fi,
                               const void* Tw, void* out, int T1, int N, int m, void* stream) {
@@ -538,14 +627,18 @@ extern "C" int fused_apply_i8(const void* raw, const void* advance, const void* 
     case 128:
       return fused::launch_i8<128>(raw, advance, phase_re, phase_im, F, Fi, Tw, out, T1, N,
                                    stream);
+    case 256:
+      return fused::launch_i8_cluster(raw, advance, phase_re, phase_im, F, Fi, Tw, out, T1, N,
+                                      stream);
     default:
       return -1;
   }
 }
 
 // pre, pim bf16 [T, N, m/2, m]; advance float [T-1, N]; tables F, Fi, Tw
-// float2 [m, m]; outputs yre, yim float [T-1, N, m/2, m]. Returns the CUDA
-// error code of the launch (0 on success); -1 for an unsupported m.
+// float2 [m, m]; outputs yre, yim float [T-1, N, m/2, m]; m in {64, 128,
+// 256}. Returns the CUDA error code of the launch (0 on success); -1 for an
+// unsupported m.
 extern "C" int fused_apply_planes(const void* pre, const void* pim, const void* advance,
                                   const void* F, const void* Fi, const void* Tw, void* yre,
                                   void* yim, int T1, int N, int m, void* stream) {
@@ -554,6 +647,8 @@ extern "C" int fused_apply_planes(const void* pre, const void* pim, const void* 
       return fused::launch_planes<64>(pre, pim, advance, F, Fi, Tw, yre, yim, T1, N, stream);
     case 128:
       return fused::launch_planes<128>(pre, pim, advance, F, Fi, Tw, yre, yim, T1, N, stream);
+    case 256:
+      return fused::launch_planes_cluster(pre, pim, advance, F, Fi, Tw, yre, yim, T1, N, stream);
     default:
       return -1;
   }

@@ -1,7 +1,12 @@
-// The m = 256 (W = 65536, L = 32768) measure and apply kernels run a window
-// on a thread-block cluster of four CTAs (fused_measure.cu:
-// measure_ref_cluster_kernel, measure_cluster_kernel; fused_apply.cu:
-// apply_spec_cluster_kernel). This header holds what they share.
+// The m = 256 (W = 65536, L = 32768) kernels run a window on a thread-block
+// cluster of four CTAs: every measure kernel (fused_measure.cu:
+// measure_ref_cluster_kernel, measure_cluster_kernel,
+// measure_planes_cluster_kernel), every apply kernel (fused_apply.cu:
+// apply_spec_cluster_kernel, apply_i8_cluster_kernel,
+// apply_planes_cluster_kernel) and the four-step FFT (fourstep.cu:
+// fourstep_cluster_kernel). This header holds what they share: the strip
+// and row-block loaders of each input format, the forward transform and
+// the inverse.
 //
 // Why a cluster. At m = 256 one CTA cannot hold a window: the m = 64 / 128
 // kernels keep the table (2 m^2 bf16) and the window or G (m^2 float2) in
@@ -16,8 +21,9 @@
 //     bf16 planes [64][256] (tc::swz<256>).
 // A forward transform D = (F A * T) F is then, on CTA rank q: B = F A on
 // strip q of the window, C = bf16(B * T) as strip q; a cluster barrier;
-// row block q of C gathered from the four strips; D = C F on row block q.
-// The inverse is its mirror: row blocks first, then strips.
+// row block q of C gathered from the four strips; D = C F on row block q
+// (forward_cluster). The inverse is its mirror: row blocks first, then
+// strips (inverse_cluster).
 //
 // The tables F, Fi (bf16-exact float32 pairs [m][m], symmetric) and T are
 // not staged in shared memory (F alone is 256 kB as bf16): every product
@@ -211,59 +217,160 @@ __device__ __forceinline__ void cluster_sum(float* part, float (&v)[n]) {
   }
 }
 
-// Strip q of the i8 window into swizzled bf16 planes [kM][kPart] at `strip`:
-// columns n1 in [64 q, 64 q + 64), 128 contiguous bytes of each row n2;
-// rows n2 < m/2 from the block `top`, the others from `top + next`. A =
-// bf16(float(i8) * (1/127)), as load_window_i8 rounds.
-__device__ __forceinline__ void load_strip_i8(const int8_t* __restrict__ top, size_t next, int q,
-                                              __nv_bfloat16* strip) {
-  constexpr float kScale = static_cast<float>(1.0 / 127.0);
-  constexpr int kRowChunks = kPart / 8;                   // 16-byte vectors of a row's strip
-  constexpr int kSteps = kM * kRowChunks / kThreads;
-  static_assert(kM * kRowChunks % kThreads == 0, "whole rounds only");
-  int4 v[kSteps];
+// --- Loaders: strip q of a window, or row block p of a spectrum, into
+// swizzled bf16 planes at `dst` (re, then im kPlane elements on), every
+// thread of the CTA, all of a thread's loads in flight at once. A window's
+// rows n2 < m/2 come from the block `top`, the others from the same
+// channel's next block, `next` elements on.
+
+// The i8 window (int8 blocks [m/2, 2m]): strip q is 128 contiguous bytes of
+// each row n2. A = bf16(float(i8) * (1/127)), as load_window_i8 rounds.
+struct StripI8 {
+  const int8_t* __restrict__ top;
+  size_t next;
+
+  __device__ __forceinline__ void operator()(int q, __nv_bfloat16* dst) const {
+    constexpr float kScale = static_cast<float>(1.0 / 127.0);
+    constexpr int kRowChunks = kPart / 8;                   // 16-byte vectors of a row's strip
+    constexpr int kSteps = kM * kRowChunks / kThreads;
+    static_assert(kM * kRowChunks % kThreads == 0, "whole rounds only");
+    int4 v[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = threadIdx.x + u * kThreads;
+      const int row = w / kRowChunks, ch = w % kRowChunks;
+      const int8_t* src = top + (row >= kM / 2 ? next : 0) +
+                          static_cast<size_t>(row % (kM / 2)) * (2 * kM) + q * (2 * kPart) + 16 * ch;
+      v[u] = __ldg(reinterpret_cast<const int4*>(src));
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = threadIdx.x + u * kThreads;
+      const int row = w / kRowChunks, ch = w % kRowChunks;
+      const int words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      uint32_t re[4], im[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        re[j] = tc::pack_bf16(sbyte(words[j], 0) * kScale, sbyte(words[j], 2) * kScale);
+        im[j] = tc::pack_bf16(sbyte(words[j], 1) * kScale, sbyte(words[j], 3) * kScale);
+      }
+      const int o = tc::swz<kPart>(row, 8 * ch);
+      *reinterpret_cast<uint4*>(dst + o) = make_uint4(re[0], re[1], re[2], re[3]);
+      *reinterpret_cast<uint4*>(dst + kPlane + o) = make_uint4(im[0], im[1], im[2], im[3]);
+    }
+  }
+};
+
+// The float path's window (bf16 block planes re, im [m/2, m]): strip q is
+// 128 contiguous bytes of each row n2 of each plane, stored as loaded (the
+// strip form of load_window_planes).
+struct StripPlanes {
+  const __nv_bfloat16* __restrict__ re;
+  const __nv_bfloat16* __restrict__ im;
+  size_t next;
+
+  __device__ __forceinline__ void operator()(int q, __nv_bfloat16* dst) const {
+    constexpr int kRowChunks = kPart / 8;
+    constexpr int kSteps = kM * kRowChunks / kThreads;
+    static_assert(kM * kRowChunks % kThreads == 0, "whole rounds only");
+    uint4 vr[kSteps], vi[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = threadIdx.x + u * kThreads;
+      const int row = w / kRowChunks, ch = w % kRowChunks;
+      const size_t o = (row >= kM / 2 ? next : 0) + static_cast<size_t>(row % (kM / 2)) * kM +
+                       q * kPart + 8 * ch;
+      vr[u] = __ldg(reinterpret_cast<const uint4*>(re + o));
+      vi[u] = __ldg(reinterpret_cast<const uint4*>(im + o));
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = threadIdx.x + u * kThreads;
+      const int o = tc::swz<kPart>(w / kRowChunks, 8 * (w % kRowChunks));
+      *reinterpret_cast<uint4*>(dst + o) = vr[u];
+      *reinterpret_cast<uint4*>(dst + kPlane + o) = vi[u];
+    }
+  }
+};
+
+// Eight complex64 values (four float4: re, im, re, im) rounded to bf16 into
+// one 16-byte chunk of each plane at offset o.
+__device__ __forceinline__ void store_c64_chunk(const float4 (&v)[4], __nv_bfloat16* dst, int o) {
+  uint32_t re[4], im[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    re[j] = tc::pack_bf16(v[j].x, v[j].z);
+    im[j] = tc::pack_bf16(v[j].y, v[j].w);
+  }
+  *reinterpret_cast<uint4*>(dst + o) = make_uint4(re[0], re[1], re[2], re[3]);
+  *reinterpret_cast<uint4*>(dst + kPlane + o) = make_uint4(im[0], im[1], im[2], im[3]);
+}
+
+// A complex64 matrix x [m][m] (the four-step's input, row n2 holding
+// samples n1): strip q is 512 contiguous bytes of each row. A = bf16(x).
+struct StripC64 {
+  const float2* __restrict__ x;
+
+  __device__ __forceinline__ void operator()(int q, __nv_bfloat16* dst) const {
+    constexpr int kRowChunks = kPart / 8;                   // 8-element chunks of a row's strip
+    constexpr int kSteps = kM * kRowChunks / kThreads;
+    static_assert(kM * kRowChunks % kThreads == 0, "whole rounds only");
+    float4 v[kSteps][4];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = threadIdx.x + u * kThreads;
+      const float4* src = reinterpret_cast<const float4*>(
+          x + (w / kRowChunks) * kM + q * kPart + 8 * (w % kRowChunks));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[u][j] = __ldcs(src + j);
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = threadIdx.x + u * kThreads;
+      store_c64_chunk(v[u], dst, tc::swz<kPart>(w / kRowChunks, 8 * (w % kRowChunks)));
+    }
+  }
+};
+
+// Row block p of a complex64 permuted spectrum X [m][m] (k2, k1): 64
+// contiguous rows of 2 kB. G = bf16(X).
+__device__ __forceinline__ void load_block_c64(const float2* __restrict__ X, int p,
+                                               __nv_bfloat16* dst) {
+  constexpr int kRowChunks = kM / 8;
+  constexpr int kSteps = kPart * kRowChunks / kThreads;
+  static_assert(kPart * kRowChunks % kThreads == 0, "whole rounds only");
+  float4 v[kSteps][4];
 #pragma unroll
   for (int u = 0; u < kSteps; ++u) {
     const int w = threadIdx.x + u * kThreads;
-    const int row = w / kRowChunks, ch = w % kRowChunks;
-    const int8_t* src = top + (row >= kM / 2 ? next : 0) +
-                        static_cast<size_t>(row % (kM / 2)) * (2 * kM) + q * (2 * kPart) + 16 * ch;
-    v[u] = __ldg(reinterpret_cast<const int4*>(src));
+    const float4* src = reinterpret_cast<const float4*>(X + static_cast<size_t>(kPart) * p * kM +
+                                                        8 * w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[u][j] = __ldcs(src + j);
   }
 #pragma unroll
   for (int u = 0; u < kSteps; ++u) {
     const int w = threadIdx.x + u * kThreads;
-    const int row = w / kRowChunks, ch = w % kRowChunks;
-    const int words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-    uint32_t re[4], im[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      re[j] = tc::pack_bf16(sbyte(words[j], 0) * kScale, sbyte(words[j], 2) * kScale);
-      im[j] = tc::pack_bf16(sbyte(words[j], 1) * kScale, sbyte(words[j], 3) * kScale);
-    }
-    const int o = tc::swz<kPart>(row, 8 * ch);
-    *reinterpret_cast<uint4*>(strip + o) = make_uint4(re[0], re[1], re[2], re[3]);
-    *reinterpret_cast<uint4*>(strip + kPlane + o) = make_uint4(im[0], im[1], im[2], im[3]);
+    store_c64_chunk(v[u], dst, tc::swz<kM>(w / kRowChunks, 8 * (w % kRowChunks)));
   }
 }
 
-// The forward four-step of an i8 window on the cluster, this CTA rank p:
-// strip p of the window into X, C = bf16((F A) * T) on strip p into Y, a
-// cluster barrier, row block p of C gathered into X, a cluster barrier
-// (after which no CTA reads another's shared memory), then D = C F on row
-// block p, each finished pair of D handed to epi(r, c, float4(re_c, im_c,
-// re_c+1, im_c+1)) with r the row within the block (k2 = 64 p + r) and c the
-// column k1. X, Y: kBuf bytes each. The epilogue may write Y and beyond, but
-// not X, which the other warps still read.
-template <class Epi>
-__device__ __forceinline__ void forward_cluster(const int8_t* __restrict__ top, size_t next,
-                                                const float2* __restrict__ F,
+// The forward four-step of a window on the cluster, this CTA rank p:
+// load(p, X) puts strip p of the window into X; C = bf16((F A) * T) on
+// strip p into Y; a cluster barrier; row block p of C gathered into X; a
+// cluster barrier (after which no CTA reads another's shared memory); then
+// D = C F on row block p, each finished pair of D handed to epi(r, c,
+// float4(re_c, im_c, re_c+1, im_c+1)) with r the row within the block (k2 =
+// 64 p + r) and c the column k1. X, Y: kBuf bytes each. The epilogue may
+// write Y and beyond, but not X, which the other warps still read.
+template <class Load, class Epi>
+__device__ __forceinline__ void forward_cluster(const Load& load, const float2* __restrict__ F,
                                                 const float2* __restrict__ Tw,
                                                 __nv_bfloat16* X, __nv_bfloat16* Y, Epi&& epi) {
   cg::cluster_group cluster = cg::this_cluster();
   const int p = static_cast<int>(cluster.block_rank());
   const int warp = threadIdx.x >> 5;
-  load_strip_i8(top, next, p, X);
+  load(p, X);
   __syncthreads();
   // Strip p of C: 16 row tiles x 2 column tiles of 16 x 32.
   for (int tile = warp; tile < (kM / 16) * (kPart / tc::kChunk); tile += kWarps) {
@@ -287,6 +394,49 @@ __device__ __forceinline__ void forward_cluster(const int8_t* __restrict__ top, 
     float dre[kTiles][4], dim[kTiles][4];
     block_x_table(X, X + kPlane, r0, F, c0, dre, dim);
     each_pair(dre, dim, r0, c0, epi);
+  }
+}
+
+// The inverse four-step of a permuted spectrum on the cluster, this CTA
+// rank p, from row block p of G (k2 in [64 p, 64 p + 64), complete at `g`):
+// C2 = G Fi on it, B2 = bf16(C2 * conj(T)) into `b`; a cluster barrier;
+// strip p of B2 (columns n1 in [64 p, 64 p + 64), every row k2) gathered
+// into `g`; a cluster barrier (after which no CTA reads another's shared
+// memory); then the rows n2 in [R0, R0 + NROWS) of y = Fi B2 on strip p,
+// each finished pair handed to epi(n2, c, float4(re_c, im_c, re_c+1,
+// im_c+1)) with c the column within the strip (n1 = 64 p + c). The
+// overlap-save applies keep the centre rows [m/4, 3m/4), the four-step
+// all of them. g, b: kBuf bytes each.
+template <int R0, int NROWS, class Epi>
+__device__ __forceinline__ void inverse_cluster(const float2* __restrict__ Fi,
+                                                const float2* __restrict__ Tw, __nv_bfloat16* g,
+                                                __nv_bfloat16* b, Epi&& epi) {
+  static_assert(R0 % 16 == 0 && NROWS % 16 == 0 && R0 + NROWS <= kM, "whole row tiles");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int p = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x >> 5;
+  // Row block p of B2: 4 row tiles x 8 column tiles.
+  for (int tile = warp; tile < (kPart / 16) * (kM / tc::kChunk); tile += kWarps) {
+    const int r0 = 16 * (tile % (kPart / 16));
+    const int c0 = tc::kChunk * (tile / (kPart / 16));
+    float are[kTiles][4], aim[kTiles][4];
+    block_x_table(g, g + kPlane, r0, Fi, c0, are, aim);
+    each_pair(are, aim, r0, c0, [&](int r, int c, float4 v) {
+      const float4 tw = __ldg(reinterpret_cast<const float4*>(Tw + (kPart * p + r) * kM + c));
+      store_pair(b, tc::swz<kM>(r, c), tc::twiddle<true>(v.x, v.y, tw.x, tw.y),
+                 tc::twiddle<true>(v.z, v.w, tw.z, tw.w));
+    });
+  }
+  cluster.sync();   // every row block of B2 complete; G read
+  gather_strip(b, g);
+  cluster.sync();   // every strip gathered: no more remote reads
+  // Rows [R0, R0 + NROWS) of y on strip p: NROWS / 16 row tiles x 2 column tiles.
+  for (int tile = warp; tile < (NROWS / 16) * (kPart / tc::kChunk); tile += kWarps) {
+    const int r0 = R0 + 16 * (tile / (kPart / tc::kChunk));
+    const int c0 = tc::kChunk * (tile % (kPart / tc::kChunk));
+    float yre[kTiles][4], yim[kTiles][4];
+    table_x_strip(Fi, r0, g, g + kPlane, c0, yre, yim);
+    each_pair(yre, yim, r0, c0, epi);
   }
 }
 

@@ -47,16 +47,19 @@
 //
 // m = 256 (W = 65536): no CTA can hold a window (the layout above needs
 // 786 kB of shared memory, and a 16-row strip at full width 256 float32
-// accumulators a thread), so measure_ref_cluster_kernel and
-// measure_cluster_kernel<STORE_D> run a window on a cluster of four CTAs
-// of 16 warps (fused_cluster.cuh: forward_cluster), and the phase zoom
-// (cluster_phase_zoom) sums across the cluster in rank order. Shared memory
-// a CTA, 196,704 bytes: X (64 kB: the window's strip, then C's row block,
-// then the zoom's scratch), Y (64 kB: C's strip, which the other CTAs
-// gather) and Z; G [64][256] float32 overlays Y and Z. The products take
-// their table operand (F, 512 kB of float32 pairs) from L2, ~3 MB a CTA,
-// which bounds them rather than the 268 MFLOP of a window (0.36 ms over
-// 1,323 windows at the bf16 peak).
+// accumulators a thread), so measure_ref_cluster_kernel,
+// measure_cluster_kernel<STORE_D> and measure_planes_cluster_kernel run a
+// window on a cluster of four CTAs of 16 warps (fused_cluster.cuh:
+// forward_cluster over a strip loader, StripI8 or StripPlanes), and the
+// phase zoom (cluster_phase_zoom) sums across the cluster in rank order.
+// One body, measure_cluster_window, serves both channel kernels, as
+// measure_window does below m = 256. Shared memory a CTA, 196,704 bytes:
+// X (64 kB: the window's strip, then C's row block, then the zoom's
+// scratch), Y (64 kB: C's strip, which the other CTAs gather) and Z; G
+// [64][256] float32 overlays Y and Z. The products take their table
+// operand (F, 512 kB of float32 pairs) from L2, ~3 MB a CTA, which bounds
+// them rather than the 268 MFLOP of a window (0.36 ms over 1,323 windows
+// at the bf16 peak).
 
 #include "fused_cluster.cuh"
 #include "fused_common.cuh"
@@ -581,7 +584,7 @@ measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw, const float2* __r
   const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
   float2* Rt = R + static_cast<size_t>(t) * kW + static_cast<size_t>(kPart) * p * kM;
   float e = 0.f;
-  forward_cluster(ref_raw + static_cast<size_t>(t) * kW, kW, F, Tw, X, Y,
+  forward_cluster(StripI8{ref_raw + static_cast<size_t>(t) * kW, kW}, F, Tw, X, Y,
                   [&](int r, int c, float4 d) {
                     *reinterpret_cast<float4*>(Rt + r * kM + c) = d;
                     e += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
@@ -597,6 +600,45 @@ measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw, const float2* __r
   cooperative_groups::this_cluster().sync();   // rank 0 has read every part
 }
 
+// The m = 256 channel body: the cluster of window `win` of slot t. load is
+// the window's strip loader; r_at(r, c) returns R's elements (r, c), (r, c
+// + 1) of this CTA's row block (k2 = 64 p + r) as float4 (re, im, re, im);
+// out.d(o, d) gets each pair of D elements at element offset o of the
+// window's spectrum, and out.scalars(t, win, z, esig, eg) runs on thread 0
+// of rank 0 with the window's sums.
+template <class Load, class RAt, class Out>
+__device__ __forceinline__ void measure_cluster_window(const Load& load,
+                                                       const float2* __restrict__ F,
+                                                       const float2* __restrict__ Tw, int t,
+                                                       size_t win, RAt&& r_at, const Out& out) {
+  using S = MeasureClusterSmem;
+  using namespace cl;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
+  float2* G = reinterpret_cast<float2*>(smem + S::kY);   // over Y and Z: [64][m]
+  float2* aux = reinterpret_cast<float2*>(smem + S::kX);  // over X, after the products
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
+  float* part = reinterpret_cast<float*>(smem + S::kPartOff);
+
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const size_t row0 = static_cast<size_t>(kPart) * p * kM;   // this block's first element
+  float esig = 0.f, eg = 0.f;
+  forward_cluster(load, F, Tw, X, Y, [&](int r, int c, float4 d) {
+    out.d(win * kW + row0 + r * kM + c, d);
+    const float4 rr = r_at(r, c);
+    const float g0re = d.x * rr.x + d.y * rr.y, g0im = d.y * rr.x - d.x * rr.y;
+    const float g1re = d.z * rr.z + d.w * rr.w, g1im = d.w * rr.z - d.z * rr.w;
+    *reinterpret_cast<float4*>(G + r * kM + c) = make_float4(g0re, g0im, g1re, g1im);
+    esig += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
+    eg += g0re * g0re + g0im * g0im + g1re * g1re + g1im * g1im;
+  });
+  float sums[2] = {block_sum<kThreads>(esig, red), block_sum<kThreads>(eg, red)};
+  // block_sum's barriers: G complete, X free for aux.
+  const ZoomResult z = cluster_phase_zoom(G, aux, part, red, sums);
+  if (p == 0 && threadIdx.x == 0) out.scalars(t, win, z, sums[0], sums[1]);
+}
+
 // m = 256, channel mode of the i8 path: the cluster of window (t, n) =
 // (blockIdx.y, blockIdx.x / 4) against R and eref from
 // measure_ref_cluster_kernel; the outputs of measure_kernel<256, STORE_D>.
@@ -608,40 +650,49 @@ measure_cluster_kernel(const int8_t* __restrict__ raw, const float2* __restrict_
                        float* __restrict__ zre_out, float* __restrict__ zim_out,
                        float* __restrict__ mag_out, float* __restrict__ papr_out,
                        __nv_bfloat16* __restrict__ dre_out, __nv_bfloat16* __restrict__ dim_out) {
-  using S = MeasureClusterSmem;
   using namespace cl;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
-  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
-  float2* G = reinterpret_cast<float2*>(smem + S::kY);   // over Y and Z: [64][m]
-  float2* aux = reinterpret_cast<float2*>(smem + S::kX);  // over X, after the products
-  float* red = reinterpret_cast<float*>(smem + S::kRed);
-  float* part = reinterpret_cast<float*>(smem + S::kPartOff);
-
   const int N = gridDim.x / kRanks;
-  const int n = blockIdx.x / kRanks;
   const int t = blockIdx.y;
+  const size_t win = static_cast<size_t>(t) * N + blockIdx.x / kRanks;
   const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
-  const size_t win = static_cast<size_t>(t) * N + n;
-  const size_t row0 = static_cast<size_t>(kPart) * p * kM;   // this block's first element
-  const float2* Rt = R + static_cast<size_t>(t) * kW + row0;
-  const I8Out<STORE_D> out{eref, lag_out, zre_out, zim_out, mag_out, papr_out, dre_out, dim_out};
-  float esig = 0.f, eg = 0.f;
-  forward_cluster(raw + win * kW, static_cast<size_t>(N) * kW, F, Tw, X, Y,
-                  [&](int r, int c, float4 d) {
-                    out.d(win * kW + row0 + r * kM + c, d);
-                    const float4 rr = __ldg(reinterpret_cast<const float4*>(Rt + r * kM + c));
-                    const float g0re = d.x * rr.x + d.y * rr.y, g0im = d.y * rr.x - d.x * rr.y;
-                    const float g1re = d.z * rr.z + d.w * rr.w, g1im = d.w * rr.z - d.z * rr.w;
-                    *reinterpret_cast<float4*>(G + r * kM + c) =
-                        make_float4(g0re, g0im, g1re, g1im);
-                    esig += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
-                    eg += g0re * g0re + g0im * g0im + g1re * g1re + g1im * g1im;
-                  });
-  float sums[2] = {block_sum<kThreads>(esig, red), block_sum<kThreads>(eg, red)};
-  // block_sum's barriers: G complete, X free for aux.
-  const ZoomResult z = cluster_phase_zoom(G, aux, part, red, sums);
-  if (p == 0 && threadIdx.x == 0) out.scalars(t, win, z, sums[0], sums[1]);
+  const float2* Rt = R + static_cast<size_t>(t) * kW + static_cast<size_t>(kPart) * p * kM;
+  measure_cluster_window(
+      StripI8{raw + win * kW, static_cast<size_t>(N) * kW}, F, Tw, t, win,
+      [&](int r, int c) { return __ldg(reinterpret_cast<const float4*>(Rt + r * kM + c)); },
+      I8Out<STORE_D>{eref, lag_out, zre_out, zim_out, mag_out, papr_out, dre_out, dim_out});
+}
+
+// m = 256, the float path: the cluster of window (t, n) = (blockIdx.y,
+// blockIdx.x / 4) of the block planes pre/pim bf16 [T, N, m/2, m] against
+// the reference spectra rre/rim bf16 [T-1, m, m]; the outputs of
+// measure_planes_kernel.
+__global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
+measure_planes_cluster_kernel(const __nv_bfloat16* __restrict__ pre,
+                              const __nv_bfloat16* __restrict__ pim,
+                              const __nv_bfloat16* __restrict__ rre,
+                              const __nv_bfloat16* __restrict__ rim,
+                              const float2* __restrict__ F, const float2* __restrict__ Tw,
+                              float* __restrict__ lag_out, float* __restrict__ zabs_out,
+                              float* __restrict__ esig_out, float* __restrict__ eg_out) {
+  using namespace cl;
+  const int N = gridDim.x / kRanks;
+  const int t = blockIdx.y;
+  const size_t win = static_cast<size_t>(t) * N + blockIdx.x / kRanks;
+  const size_t top = win * (kW / 2);   // block t of channel n
+  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const size_t rt = static_cast<size_t>(t) * kW + static_cast<size_t>(kPart) * p * kM;
+  const unsigned int* Rre = reinterpret_cast<const unsigned int*>(rre + rt);
+  const unsigned int* Rim = reinterpret_cast<const unsigned int*>(rim + rt);
+  measure_cluster_window(
+      StripPlanes{pre + top, pim + top, static_cast<size_t>(N) * (kW / 2)}, F, Tw, t, win,
+      [&](int r, int c) {
+        // Elements (r, c), (r, c + 1) of each plane, one bf16 pair a load
+        // (c even), widened exactly.
+        const float2 re = unpack_bf16(__ldg(Rre + (r * kM + c) / 2));
+        const float2 im = unpack_bf16(__ldg(Rim + (r * kM + c) / 2));
+        return make_float4(re.x, im.x, re.y, im.y);
+      },
+      PlanesOut{lag_out, zabs_out, esig_out, eg_out});
 }
 
 int launch_ref_cluster(const void* ref_raw, const void* F, const void* Tw, void* R, void* eref,
@@ -670,6 +721,21 @@ int launch_cluster(const void* raw, const void* F, const void* Tw, const void* R
       static_cast<const float*>(eref), static_cast<float*>(lag), static_cast<float*>(zre),
       static_cast<float*>(zim), static_cast<float*>(mag), static_cast<float*>(papr),
       static_cast<__nv_bfloat16*>(dre), static_cast<__nv_bfloat16*>(dim));
+  return cudaGetLastError();
+}
+
+int launch_planes_cluster(const void* pre, const void* pim, const void* rre, const void* rim,
+                          const void* F, const void* Tw, void* lag, void* zabs, void* esig,
+                          void* eg, int T1, int N, void* stream) {
+  const int smem = static_cast<int>(MeasureClusterSmem::kBytes);
+  const cudaError_t err = set_smem(measure_planes_cluster_kernel, smem);
+  if (err != cudaSuccess) return err;
+  measure_planes_cluster_kernel<<<dim3(cl::kRanks * N, T1), cl::kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
+      static_cast<const __nv_bfloat16*>(rre), static_cast<const __nv_bfloat16*>(rim),
+      static_cast<const float2*>(F), static_cast<const float2*>(Tw), static_cast<float*>(lag),
+      static_cast<float*>(zabs), static_cast<float*>(esig), static_cast<float*>(eg));
   return cudaGetLastError();
 }
 
@@ -738,8 +804,9 @@ extern "C" int fused_measure_i8(const void* raw, const void* F, const void* Tw, 
 }
 
 // pre, pim bf16 [T, N, m/2, m]; rre, rim bf16 [T-1, m, m]; tables F, Tw
-// float2 [m, m]; outputs lag, zabs, esig, eg float [T-1, N]. Returns the
-// CUDA error code of the launch (0 on success); -1 for an unsupported m.
+// float2 [m, m]; outputs lag, zabs, esig, eg float [T-1, N]; m in {64,
+// 128, 256}. Returns the CUDA error code of the launch (0 on success); -1
+// for an unsupported m.
 extern "C" int fused_measure_planes(const void* pre, const void* pim, const void* rre,
                                     const void* rim, const void* F, const void* Tw, void* lag,
                                     void* zabs, void* esig, void* eg, int T1, int N, int m,
@@ -751,6 +818,9 @@ extern "C" int fused_measure_planes(const void* pre, const void* pim, const void
     case 128:
       return fused::launch_planes<128>(pre, pim, rre, rim, F, Tw, lag, zabs, esig, eg, T1, N,
                                        stream);
+    case 256:
+      return fused::launch_planes_cluster(pre, pim, rre, rim, F, Tw, lag, zabs, esig, eg, T1, N,
+                                          stream);
     default:
       return -1;
   }

@@ -13,7 +13,9 @@ f32), each complex product as four real ones, from the packed bf16 tables
 that ``packed_tables`` builds once an instance; the inverse runs transposed
 (C^T = Fi G^T, x^T = B^T Fi), which F, Fi and the twiddle being symmetric
 allows. A persistent grid of one CTA an SM walks the batch while producer
-warps stream the next window in (see the note in ``csrc/fourstep.cu``).
+warps stream the next window in (see the note in ``csrc/fourstep.cu``). At
+m = 256 (W = 65536) a transform runs on a cluster of four CTAs that read F
+or Fi as float32 pairs from L2 (the packed planes, 256 kB, fit no CTA).
 """
 
 import functools

@@ -30,12 +30,10 @@ kernel written by hand (``csrc/fused_measure.cu``, ``csrc/fused_apply.cu``,
 bound in ``kernels/fused_cuda.py``), and dispatches on the device of its
 input: a CPU tensor runs the plain version, a CUDA tensor launches the
 kernel (or raises). The instance counts the runs of each (``COUNTS``).
-The kernels take m in {64, 128}; at m = 256 (L = 32768) ``measure_ref``,
-``measure_spec``, ``measure_i8`` and ``apply_spec_i8`` run a window on a
-cluster of four CTAs (``csrc/fused_cluster.cuh``), one launch a call as
-at the smaller sizes, while ``apply_i8``, ``measure`` and ``apply`` raise
-on a CUDA tensor (``fused_cuda.ADMITTED_M``). The plain versions take any
-square m with m % 8 == 0.
+The kernels take m in {64, 128, 256}; at m = 256 (L = 32768) each runs a
+window on a cluster of four CTAs (``csrc/fused_cluster.cuh``), one launch
+a call as at the smaller sizes (``fused_cuda.ADMITTED_M``). The plain
+versions take any square m with m % 8 == 0.
 
 The plain versions reproduce the JAX kernels' bf16 casts exactly: each
 product takes bf16-rounded operands and accumulates in float32, cast at the

@@ -30,26 +30,18 @@ HEADERS = ("fused_cluster.cuh", "fused_common.cuh", "tc_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# The m each C entry point takes. At m = 256 (W = 65536, L = 32768) the i8
-# handoff chain and the recompute measure run a window on a cluster of four
-# CTAs (csrc/fused_cluster.cuh); the other entries are still to be ported
-# there, and their wrappers raise, naming the row of the TPU kernel table
-# (PERF.md, Findings) that holds the kernel they port.
+# The m each C entry point takes. At m = 256 (W = 65536, L = 32768) every
+# entry runs a window (or a transform) on a cluster of four CTAs
+# (csrc/fused_cluster.cuh).
 ADMITTED_M = {
     "fused_measure_ref": (64, 128, 256),
     "fused_measure_i8_spec": (64, 128, 256),
     "fused_measure_i8": (64, 128, 256),
     "fused_apply_spec_i8": (64, 128, 256),
-    "fused_apply_i8": (64, 128),
-    "fourstep_fft": (64, 128),
-    "fused_measure_planes": (64, 128),
-    "fused_apply_planes": (64, 128),
-}
-TO_PORT_AT_256 = {
-    "fused_apply_i8": "row 4 (pallas_fused.py:447 _apply_kernel_i8)",
-    "fourstep_fft": "row 5 (pallas_fft.py:32/59/88 _fourstep_kernel*)",
-    "fused_measure_planes": "row 6 (pallas_fused.py:185 _measure_kernel)",
-    "fused_apply_planes": "row 7 (pallas_fused.py:220 _apply_kernel)",
+    "fused_apply_i8": (64, 128, 256),
+    "fourstep_fft": (64, 128, 256),
+    "fused_measure_planes": (64, 128, 256),
+    "fused_apply_planes": (64, 128, 256),
 }
 
 
@@ -113,23 +105,34 @@ def build() -> dict:
 
 # The measure kernels, all on the tensor cores, by their ptxas_usage names:
 # {reference, i8 channels with and without the D store, float channels} x
-# m in {64, 128}, and the m = 256 cluster kernels (reference, i8 channels
-# with and without D).
+# m in {64, 128}, and the four as m = 256 cluster kernels.
 TC_MEASURE_KERNELS = tuple(
     [f"fused::measure_ref_kernel<{m}>" for m in (64, 128)]
     + [f"fused::measure_kernel<{m}, {d}>" for m in (64, 128) for d in (1, 0)]
     + [f"fused::measure_planes_kernel<{m}>" for m in (64, 128)]
     + ["fused::measure_ref_cluster_kernel", "fused::measure_cluster_kernel<1>",
-       "fused::measure_cluster_kernel<0>"])
+       "fused::measure_cluster_kernel<0>", "fused::measure_planes_cluster_kernel"])
 
 # The apply kernels, all on the tensor cores, by their ptxas_usage names:
 # {the spectrum handoff's persistent kernel, the i8 recompute kernel, the
-# float kernel} x m in {64, 128}, and the handoff's m = 256 cluster kernel.
+# float kernel} x m in {64, 128}, and the three as m = 256 cluster kernels.
 TC_APPLY_KERNELS = tuple(
     [f"fused::apply_spec_kernel<{m}>" for m in (64, 128)]
     + [f"fused::apply_i8_kernel<{m}>" for m in (64, 128)]
     + [f"fused::apply_planes_kernel<{m}>" for m in (64, 128)]
-    + ["fused::apply_spec_cluster_kernel"])
+    + ["fused::apply_spec_cluster_kernel", "fused::apply_i8_cluster_kernel",
+       "fused::apply_planes_cluster_kernel"])
+
+# The four-step kernels, forward (0) and inverse (1): the persistent kernel
+# at m in {64, 128} and the m = 256 cluster kernel.
+TC_FOURSTEP_KERNELS = tuple(
+    [f"fourstep::fourstep_kernel<{m}, {inv}>" for m in (64, 128) for inv in (0, 1)]
+    + [f"fourstep::fourstep_cluster_kernel<{inv}>" for inv in (0, 1)])
+
+# Each source's tensor-core instantiations, which must use no stack frame
+# and spill nothing.
+TC_KERNELS = {"fused_measure.cu": TC_MEASURE_KERNELS, "fused_apply.cu": TC_APPLY_KERNELS,
+              "fourstep.cu": TC_FOURSTEP_KERNELS}
 
 
 def _kernel_name(mangled: str) -> str:
@@ -241,9 +244,7 @@ def _tables(fft):
 def admit(entry: str, m: int):
     """Raise ``ValueError`` unless the C entry point ``entry`` takes m."""
     if m not in ADMITTED_M[entry]:
-        todo = (f"; at m = 256 it is still to be ported: kernel table {TO_PORT_AT_256[entry]}"
-                if m == 256 else "")
-        raise ValueError(f"{entry} takes m in {ADMITTED_M[entry]}, got m = {m}{todo}")
+        raise ValueError(f"{entry} takes m in {ADMITTED_M[entry]}, got m = {m}")
 
 
 def _setup(k, x: torch.Tensor, fft, entry: str):
@@ -401,17 +402,22 @@ def apply_planes(k, pre, pim, advance):
 
 def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Launch ``fourstep_fft`` on ``x`` complex64 ``[B, m, m]`` (see
-    ``FFT4StepKernel``), with the instance's packed bf16 table of F or Fi
-    and the float32 twiddle of its plain version; returns complex64
-    ``[B, m, m]``."""
-    fns, (_, _, Tw), stream = _setup(k, x, k.plain, "fourstep_fft")
+    ``FFT4StepKernel``), with the table of F or Fi and the float32 twiddle
+    of its plain version: the instance's packed bf16 planes at m in {64,
+    128}, the float32 pairs of ``_tables`` at m = 256 (the cluster kernel
+    reads them from L2); returns complex64 ``[B, m, m]``."""
+    fns, (F, Fi, Tw), stream = _setup(k, x, k.plain, "fourstep_fft")
     m, dev = k.m, x.device
     B = x.shape[0]
     if B < 1:
         raise ValueError("fourstep_fft: need at least one transform")
     _expect(x, "x", torch.complex64, (B, m, m), dev)
-    tab = k.fi_packed if inverse else k.f_packed
-    _expect(tab, "table", torch.bfloat16, (2, m, m), dev)
+    if m == 256:
+        tab = Fi if inverse else F
+        _expect(tab, "table", torch.float32, (m, m, 2), dev)
+    else:
+        tab = k.fi_packed if inverse else k.f_packed
+        _expect(tab, "table", torch.bfloat16, (2, m, m), dev)
     for name, v in (("x", x), ("table", tab), ("twiddle", Tw)):
         _dense(name, v)
     y = torch.empty_like(x)

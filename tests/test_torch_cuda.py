@@ -132,14 +132,14 @@ def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_d
 
 @pytest.mark.cuda
 def test_measure_kernels_use_no_stack_on_card(cuda_device):
-    """ptxas: the eighteen tensor-core instantiations, the eleven measure
-    ones ({reference, i8 channels with and without D, float channels} x m in
-    {64, 128}, and the three m = 256 cluster kernels) and the seven apply
-    ones ({i8 handoff, i8 recompute, float} x m in {64, 128}, and the m = 256
-    handoff), use no stack frame and spill nothing."""
+    """ptxas: the twenty-seven tensor-core instantiations use no stack
+    frame and spill nothing: twelve measure ones ({reference, i8 channels
+    with and without D, float channels} x m in {64, 128, 256}, the m = 256
+    ones cluster kernels), nine apply ones ({i8 handoff, i8 recompute,
+    float} x m in {64, 128, 256}) and six four-step ones (forward and
+    inverse x m in {64, 128, 256})."""
     report = fused_cuda.build()
-    for src, names in (("fused_measure.cu", fused_cuda.TC_MEASURE_KERNELS),
-                       ("fused_apply.cu", fused_cuda.TC_APPLY_KERNELS)):
+    for src, names in fused_cuda.TC_KERNELS.items():
         usage = fused_cuda.ptxas_usage(report[src])
         for name in names:
             assert (usage[name]["stack"], usage[name]["spill_stores"],
@@ -150,12 +150,12 @@ def test_measure_kernels_use_no_stack_on_card(cuda_device):
 @pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
 def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
-    """Both i8 apply kernels (the handoff's persistent grid or, at m = 256,
-    its cluster kernel; the recompute kernel where it takes m) against
-    their plain versions by the wire bars, on correlated bytes: one window
-    of 21 channels (a streaming step), a single channel, and 26 x 21
-    windows, no whole number of rounds of the persistent grid; among the
-    advances a large negative and a fractional one."""
+    """Both i8 apply kernels (the handoff's persistent grid and the
+    recompute kernel or, at m = 256, their cluster kernels) against their
+    plain versions by the wire bars, on correlated bytes: one window of 21
+    channels (a streaming step), a single channel, and 26 x 21 windows, no
+    whole number of rounds of the persistent grid; among the advances a
+    large negative and a fractional one."""
     t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
     k = FusedPipelineKernels(m * m, cuda_device)
     raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
@@ -168,13 +168,12 @@ def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_dev
     args = (adv, torch.cos(ph), torch.sin(ph))
     k.reset_counts()
     pairs = [(k.apply_spec_i8(spec[5], spec[6], *args),
-              k.apply_spec_i8_plain(spec[5], spec[6], *args))]
-    want = dict(apply_spec_i8_launches=1, apply_spec_i8_plain_runs=1)
-    if m in fused_cuda.ADMITTED_M["fused_apply_i8"]:
-        pairs.append((k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args)))
-        want.update(apply_i8_launches=1, apply_i8_plain_runs=1)
+              k.apply_spec_i8_plain(spec[5], spec[6], *args)),
+             (k.apply_i8(raw, *args), k.apply_i8_plain(raw, *args))]
     torch.cuda.synchronize()
-    assert k.counts() == dict.fromkeys(k.counts(), 0) | want
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(
+        apply_spec_i8_launches=1, apply_spec_i8_plain_runs=1, apply_i8_launches=1,
+        apply_i8_plain_runs=1)
     for got, want in pairs:
         assert got.dtype == torch.int8 and got.shape == (t - 1, n, m // 2, 2 * m)
         assert want.int().abs().max().item() >= 8
@@ -183,26 +182,40 @@ def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_dev
 
 
 @pytest.mark.cuda
-def test_unported_entries_raise_at_m256_on_card(cuda_device):
-    """At m = 256 the recompute apply, the four-step kernel and the float
-    pair (kernel table rows 4-7) raise on CUDA tensors, naming their row,
-    and nothing runs: no launch and no plain version."""
+@pytest.mark.parametrize("kind", ["random", "correlated"])
+def test_rows_4_to_7_match_plain_at_m256_on_card(kind, cuda_device):
+    """At m = 256 the entries of kernel table rows 4-7 (the recompute apply,
+    the four-step forward and inverse, the float measure and apply) run
+    their cluster kernels, one launch a call and no plain version, each
+    within its bars of its plain version: the wire bars, the four-step's
+    1e-3 of the plain version's largest element (and 3e-2 of torch.fft's),
+    the float pair's measure and float wire bars."""
     m = 256
     k = FusedPipelineKernels(m * m, cuda_device)
     fk = FFT4StepKernel(m * m, cuda_device)
-    raw = torch.zeros((2, 1, m // 2, 2 * m), dtype=torch.int8, device=cuda_device)
-    one = torch.zeros((1, 1), device=cuda_device)
-    planes = torch.zeros((2, 1, m // 2, m), dtype=torch.bfloat16, device=cuda_device)
-    spec = torch.zeros((1, m, m), dtype=torch.bfloat16, device=cuda_device)
-    calls = {"row 4": lambda: k.apply_i8(raw, one, one, one),
-             "row 5": lambda: fk.fft(torch.zeros((1, m * m), dtype=torch.complex64,
-                                                 device=cuda_device)),
-             "row 6": lambda: k.measure(planes, planes, spec, spec),
-             "row 7": lambda: k.apply(planes, planes, one)}
-    for row, call in calls.items():
-        with pytest.raises(ValueError, match=row):
-            call()
-    assert set(k.counts().values()) == {0} and set(fk.counts().values()) == {0}
+    raw, ref_raw = _blocks(kind, m, cuda_device)
+    adv = _advances(T - 1, N, m, cuda_device)
+    ph = torch.rand((T - 1, N), device=cuda_device) * 6.283185307179586
+    args = (adv, torch.cos(ph), torch.sin(ph))
+    wk = k.apply_i8(raw, *args)
+    wp = k.apply_i8_plain(raw, *args)
+    torch.cuda.synchronize()
+    assert k.counts() == dict.fromkeys(k.counts(), 0) | dict(apply_i8_launches=1,
+                                                              apply_i8_plain_runs=1)
+    assert wk.dtype == torch.int8 and wk.shape == (T - 1, N, m // 2, 2 * m)
+    d = (wk.int() - wp.int()).abs()
+    assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
+
+    sig = i8_iq_to_c64(raw.reshape(T, N, m * m // 2, 2))
+    x = torch.cat([sig[:-1], sig[1:]], dim=-1).reshape(-1, m * m)
+    X = torch.fft.fft(x).reshape(-1, m, m).transpose(-1, -2)   # natural -> (k2, k1)
+    for got, want, lib in ((fk.fft(x), fk.fft_plain(x), X), (fk.ifft(X), fk.ifft_plain(X), x)):
+        assert got.shape == want.shape and got.dtype == torch.complex64
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+        assert ((got - lib).abs().max() / lib.abs().max()).item() < 3e-2
+    assert fk.counts() == dict(fft_launches=1, ifft_launches=1, fft_plain_runs=1,
+                               ifft_plain_runs=1)
+    _hold_float_pair(k, _planes(raw, ref_raw, m), adv, kind)
 
 
 @pytest.mark.cuda
@@ -231,9 +244,9 @@ def _planes(raw, ref_raw, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 256])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_fourstep_matches_plain_on_card(inverse, cuda_device):
-    m = 64
+def test_fourstep_matches_plain_on_card(inverse, m, cuda_device):
     k = FFT4StepKernel(m * m, cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.complex(torch.randn((7, m * m), generator=g, device=cuda_device),
@@ -294,7 +307,7 @@ def _advances(t1, n, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["random", "correlated"])
 def test_float_kernels_match_plain_on_card(kind, m, cuda_device):
     k = FusedPipelineKernels(m * m, cuda_device)
@@ -303,13 +316,14 @@ def test_float_kernels_match_plain_on_card(kind, m, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
 def test_float_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
     """fused_measure_planes and fused_apply_planes against their plain
     versions on correlated planes: one window of 21 channels (a streaming
     step), a single channel, and 26 x 21 windows, no whole wave of CTAs on
-    132 SMs; among the advances a large negative and a fractional one."""
+    132 SMs at any m (at m = 256 a window is a cluster of four CTAs); among
+    the advances a large negative and a fractional one."""
     t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
     k = FusedPipelineKernels(m * m, cuda_device)
     planes = _planes(*_blocks("correlated", m, cuda_device, t, n), m)
@@ -317,13 +331,14 @@ def test_float_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_dev
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 256])
 @pytest.mark.parametrize("impl", ["xla", "mxu", "pallas", "fused"])
-def test_backends_run_on_card_without_plain_paths(impl, cuda_device):
+def test_backends_run_on_card_without_plain_paths(impl, m, cuda_device):
     """Each backend of get_spectral on the card, prepare -> measure ->
     correct: "pallas" launches the four-step kernel (2 forward, 2 inverse),
     "fused" the reference transform and the float measure/apply kernels,
     and no plain version runs."""
-    m, L = 64, 2048
+    L = m * m // 2
     method = "phase_zoom" if impl == "fused" else "phase_slope"
     cfg = PipelineConfig(n_channels=N, block_len=L, fft_impl=impl, lag_method=method)
     fk, kk = get_fourstep_kernel(m * m, cuda_device), get_fused_kernels(m * m, cuda_device)
@@ -347,7 +362,7 @@ def test_backends_run_on_card_without_plain_paths(impl, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["random", "correlated"])
 def test_recompute_kernels_match_plain_on_card(kind, m, cuda_device):
     """fused_measure_i8 (after fused_measure_ref) and fused_apply_i8 against

@@ -164,64 +164,65 @@ def test_get_fused_kernels_is_one_instance_per_device():
 
 
 def test_cuda_wrapper_rejects_unsupported_sizes():
-    # m = 32 has a plain version but no CUDA kernel, and at m = 256 the
-    # entries of kernel table rows 4-7 are still to be ported: the wrapper
-    # refuses both before touching a device, naming the row at m = 256.
-    k = FusedPipelineKernels(1024, "cpu")
-    raw = torch.zeros((2, 1, 16, 64), dtype=torch.int8)
-    with pytest.raises(ValueError, match="m in"):
-        fused_cuda.measure_ref(k, raw[:, 0])
-    with pytest.raises(ValueError, match="m in"):
-        fused_cuda.measure_spec(k, raw, *k.measure_ref_plain(raw[:, 0]))
-    with pytest.raises(ValueError, match="m in"):
-        fused_cuda.measure_i8(k, raw, *k.measure_ref_plain(raw[:, 0]))
-    d = torch.zeros((1, 1, 32, 32), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="m in"):
-        fused_cuda.apply_spec_i8(k, d, d, *(torch.zeros((1, 1)),) * 3)
+    # m = 32 and m = 512 have plain versions but no CUDA kernel: every
+    # wrapper refuses both before touching a device. m = 256 is admitted by
+    # every entry (its cluster kernels), so a CPU tensor there gets past the
+    # size check to the device check.
+    for m in (32, 512):
+        k = FusedPipelineKernels(m * m, "cpu")
+        raw = torch.zeros((2, 1, m // 2, 2 * m), dtype=torch.int8)
+        one = torch.zeros((1, 1))
+        d = torch.zeros((1, 1, m, m), dtype=torch.bfloat16)
+        planes = torch.zeros((2, 1, m // 2, m), dtype=torch.bfloat16)
+        calls = [lambda: fused_cuda.measure_ref(k, raw[:, 0]),
+                 lambda: fused_cuda.measure_spec(k, raw, *k.measure_ref_plain(raw[:, 0])),
+                 lambda: fused_cuda.measure_i8(k, raw, *k.measure_ref_plain(raw[:, 0])),
+                 lambda: fused_cuda.apply_spec_i8(k, d, d, one, one, one),
+                 lambda: fused_cuda.apply_i8(k, raw, one, one, one),
+                 lambda: fused_cuda.measure_planes(k, planes, planes, d[0], d[0]),
+                 lambda: fused_cuda.apply_planes(k, planes, planes, one),
+                 lambda: fused_cuda.fourstep(FFT4StepKernel(m * m, "cpu"),
+                                             torch.zeros((1, m, m), dtype=torch.complex64),
+                                             False)]
+        for call in calls:
+            with pytest.raises(ValueError, match=f"m in \\(64, 128, 256\\), got m = {m}"):
+                call()
+        assert not any(v for name, v in k.counts().items() if name.endswith("_launches"))
     k = FusedPipelineKernels(65536, "cpu")
-    raw = torch.zeros((2, 1, 128, 512), dtype=torch.int8)
-    one = torch.zeros((1, 1))
-    with pytest.raises(ValueError, match="row 4"):
-        fused_cuda.apply_i8(k, raw, one, one, one)
-    d = torch.zeros((1, 1, 256, 256), dtype=torch.bfloat16)
     planes = torch.zeros((2, 1, 128, 256), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="row 6"):
-        fused_cuda.measure_planes(k, planes, planes, d[0], d[0])
-    with pytest.raises(ValueError, match="row 7"):
-        fused_cuda.apply_planes(k, planes, planes, one)
-    fk = FFT4StepKernel(65536, "cpu")
-    with pytest.raises(ValueError, match="row 5"):
-        fused_cuda.fourstep(fk, torch.zeros((1, 256, 256), dtype=torch.complex64), False)
+    with pytest.raises(ValueError, match="kernels built for cpu"):
+        fused_cuda.apply_planes(k, planes.to("meta"), planes.to("meta"), torch.zeros((1, 1)))
     with pytest.raises(ValueError):
         FusedPipelineKernels(4000, "cpu")
 
 
 def test_cuda_admission_is_per_entry():
-    """Each C entry point takes its own set of m: the i8 handoff chain and
-    the recompute measure at m in {64, 128, 256}, the rest at {64, 128},
-    each of those with the kernel table row it waits for at m = 256."""
-    full, small = (64, 128, 256), (64, 128)
-    assert fused_cuda.ADMITTED_M == {
-        "fused_measure_ref": full, "fused_measure_i8_spec": full, "fused_measure_i8": full,
-        "fused_apply_spec_i8": full, "fused_apply_i8": small, "fourstep_fft": small,
-        "fused_measure_planes": small, "fused_apply_planes": small}
+    """Each C entry point takes m in {64, 128, 256} (at m = 256 a window,
+    or a transform, on a cluster of four CTAs) and refuses any other m.
+    The ptxas check covers every tensor-core instantiation, the seven
+    m = 256 cluster kernels among them."""
+    assert fused_cuda.ADMITTED_M == dict.fromkeys(
+        ["fused_measure_ref", "fused_measure_i8_spec", "fused_measure_i8",
+         "fused_apply_spec_i8", "fused_apply_i8", "fourstep_fft", "fused_measure_planes",
+         "fused_apply_planes"], (64, 128, 256))
+    assert not hasattr(fused_cuda, "TO_PORT_AT_256")
     assert set(fused_cuda.ADMITTED_M) == {name for _, name, *_ in fused_cuda.ENTRY_POINTS
                                           if name != "probe_copy_blocks"}
-    rows = {"fused_apply_i8": 4, "fourstep_fft": 5, "fused_measure_planes": 6,
-            "fused_apply_planes": 7}
     for entry, m_set in fused_cuda.ADMITTED_M.items():
         for m in m_set:
             fused_cuda.admit(entry, m)
-        if entry in rows:
-            with pytest.raises(ValueError, match=f"{entry} .* row {rows[entry]} "):
-                fused_cuda.admit(entry, 256)
-        with pytest.raises(ValueError, match="m in"):
-            fused_cuda.admit(entry, 512)
-    names = fused_cuda.TC_MEASURE_KERNELS + fused_cuda.TC_APPLY_KERNELS
-    assert len(names) == len(set(names)) == 18
+        for m in (32, 512):
+            with pytest.raises(ValueError, match=f"{entry} takes m in"):
+                fused_cuda.admit(entry, m)
+    names = sum(fused_cuda.TC_KERNELS.values(), ())
+    assert len(names) == len(set(names)) == 27
+    assert set(fused_cuda.TC_KERNELS) == set(fused_cuda.SOURCES) - {"probe_copy.cu"}
     assert {n for n in names if "cluster" in n} == {
         "fused::measure_ref_cluster_kernel", "fused::measure_cluster_kernel<1>",
-        "fused::measure_cluster_kernel<0>", "fused::apply_spec_cluster_kernel"}
+        "fused::measure_cluster_kernel<0>", "fused::measure_planes_cluster_kernel",
+        "fused::apply_spec_cluster_kernel", "fused::apply_i8_cluster_kernel",
+        "fused::apply_planes_cluster_kernel", "fourstep::fourstep_cluster_kernel<0>",
+        "fourstep::fourstep_cluster_kernel<1>"}
 
 
 def test_no_fallback_without_the_card(monkeypatch, tmp_path):
@@ -308,11 +309,11 @@ def test_ptxas_usage_reads_each_entry_kernel():
                                                  spill_loads=0),
         "probe_entry": dict(registers=10, stack=0, spill_stores=0, spill_loads=0),
     }
-    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 11
+    assert len(set(fused_cuda.TC_MEASURE_KERNELS)) == 12
     assert {"fused::measure_kernel<128, 1>", "fused::measure_ref_kernel<64>",
             "fused::measure_planes_kernel<64>", "fused::measure_planes_kernel<128>"} < set(
         fused_cuda.TC_MEASURE_KERNELS)
-    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 7
+    assert len(set(fused_cuda.TC_APPLY_KERNELS)) == 9
     assert {"fused::apply_spec_kernel<128>", "fused::apply_i8_kernel<64>",
             "fused::apply_planes_kernel<64>", "fused::apply_planes_kernel<128>"} < set(
         fused_cuda.TC_APPLY_KERNELS)

@@ -235,19 +235,24 @@ def test_probe_raises_without_a_card(monkeypatch):
 
 
 def test_cuda_wrappers_reject_m256():
-    """At m = 256 the recompute apply (kernel table row 4) is still to be
-    ported, and its wrapper raises before touching a device; the recompute
-    measure takes m = 256 (its cluster kernel) and refuses a size with no
-    kernel (m = 32)."""
+    """Both recompute wrappers take m in {64, 128, 256} (at m = 256 their
+    cluster kernels) and refuse a size with no kernel (m = 32 and 512)
+    before touching a device; a CPU tensor at m = 256 gets past the size
+    check to the device check. The copy refuses what it cannot take."""
+    for m in (64, 128, 256):
+        fused_cuda.admit("fused_measure_i8", m)
+        fused_cuda.admit("fused_apply_i8", m)
     k = FusedPipelineKernels(65536, "cpu")
-    raw = torch.zeros((2, 1, 128, 512), dtype=torch.int8)
-    with pytest.raises(ValueError, match="m in .* row 4"):
+    raw = torch.zeros((2, 1, 128, 512), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="kernels built for cpu"):
         fused_cuda.apply_i8(k, raw, *(torch.zeros((1, 1)),) * 3)
-    fused_cuda.admit("fused_measure_i8", 256)
-    k32 = FusedPipelineKernels(1024, "cpu")
-    raw32 = torch.zeros((2, 1, 16, 64), dtype=torch.int8)
-    with pytest.raises(ValueError, match="m in"):
-        fused_cuda.measure_i8(k32, raw32, *k32.measure_ref_plain(raw32[:, 0]))
+    for m in (32, 512):
+        km = FusedPipelineKernels(m * m, "cpu")
+        raw_m = torch.zeros((2, 1, m // 2, 2 * m), dtype=torch.int8)
+        with pytest.raises(ValueError, match="m in"):
+            fused_cuda.measure_i8(km, raw_m, *km.measure_ref_plain(raw_m[:, 0]))
+        with pytest.raises(ValueError, match="m in"):
+            fused_cuda.apply_i8(km, raw_m, *(torch.zeros((1, 1)),) * 3)
     with pytest.raises(ValueError, match="N a multiple of nc"):
         fused_cuda.copy_blocks(BlockCopy(), torch.zeros((2, 3, 32, 128), dtype=torch.int8), 2)
     with pytest.raises(ValueError, match="int8"):

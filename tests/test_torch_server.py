@@ -125,6 +125,7 @@ SERVER_CASES = [
     pytest.param("pallas", 4, None, False, 2048, 12, id="pallas-4"),
     pytest.param("mxu", 1, None, True, 2048, 12, id="mxu-1-gaps"),
     pytest.param("fused", 2, None, False, 32768, 8, id="fused-2-L32768"),
+    pytest.param("pallas", 2, None, False, 32768, 8, id="pallas-2-L32768"),
 ]
 
 
