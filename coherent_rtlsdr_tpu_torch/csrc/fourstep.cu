@@ -43,17 +43,18 @@
 //
 // m = 256 (W = 65536): the packed bf16 table alone is 256 kB, more than a
 // CTA may hold, so fourstep_cluster_kernel runs a transform on a cluster of
-// four CTAs of 16 warps, as the m = 256 measure and apply kernels do
-// (fused_cluster.cuh), reading F or Fi as bf16-exact float32 pairs from L2
-// into the products' fragments. Forward: forward_cluster over the strips of
-// x (StripC64: A = bf16(x)), its epilogue writing row block p of D as
-// complex64. Inverse: G = bf16(X) on row block p (load_block_c64), then
-// inverse_cluster over all m rows, each CTA writing the 64 columns n1 of
-// its strip of x in natural order. Shared memory 131,072 bytes; one
-// cluster a transform, no persistent grid. What bounds it: the bytes
-// (1.05 MB a transform in and out, 0.41 ms at B = 1,323) against 0.36 ms
-// of products at the bf16 peak; the table operands from L2 (~3 MB a CTA,
-// as in the measure) weigh on it more than either.
+// four CTAs of four warpgroups, as the m = 256 measure and apply kernels
+// do (fused_cluster.cuh): F or Fi streamed once a cluster through a ring of
+// shared-memory k-slices (cp.async.bulk multicast, mbarriers), the products
+// on wgmma with the window's operand in registers. Forward: forward_cluster
+// over the strips of x (StripC64: A = bf16(x)), its epilogue writing row
+// block p of D as complex64. Inverse: G = bf16(X) on row block p
+// (load_block_c64), then inverse_cluster over all m rows, each CTA writing
+// the 64 columns n1 of its strip of x in natural order. Shared memory
+// 196,688 bytes: X, Y (64 kB each), the ring's four 16 kB slots and its
+// barriers. One cluster a transform, no persistent grid. What bounds it:
+// the bytes (1.05 MB a transform in and out, 0.41 ms at B = 1,323) against
+// 0.36 ms of products at the bf16 peak; neither: see fused_cluster.cuh.
 
 #include "fused_cluster.cuh"
 #include "tc_common.cuh"
@@ -233,43 +234,53 @@ int launch(const void* x, const void* tab, const void* Tw, void* y, int B, void*
 }
 
 // m = 256: the cluster of transform b = blockIdx.x / 4 of x [B, m, m]
-// complex64 into y[b], with the float32-pair table F (forward) or Fi
-// (inverse) [m, m] and the twiddle Tw.
+// complex64 into y[b], with the packed bf16 k-slices of F (forward) or Fi
+// (inverse) and the twiddle Tw. Shared memory: X, Y (kBuf each), the ring.
+struct ClusterSmem {
+  static constexpr size_t kX = 0, kY = fused::cl::kBuf, kRing = 2 * fused::cl::kBuf;
+  static constexpr size_t kBars = kRing + fused::cl::kRingBytes;
+  static constexpr size_t kBytes = kBars + fused::cl::kRingBarBytes;
+};
+
 template <bool INVERSE>
 __global__ void __cluster_dims__(fused::cl::kRanks, 1, 1)
     __launch_bounds__(fused::cl::kThreads, 1)
-fourstep_cluster_kernel(const float2* __restrict__ x, const float2* __restrict__ tab,
+fourstep_cluster_kernel(const float2* __restrict__ x, const __nv_bfloat16* __restrict__ tab,
                         const float2* __restrict__ Tw, float2* __restrict__ y) {
   using namespace fused::cl;
+  using S = ClusterSmem;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
-  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
+  using TabRing = Ring<S::kRing, S::kBars, 1>;
+  TabRing::start(tab, tab);
+  const int p = TabRing::rank();
   const size_t b = blockIdx.x / kRanks;
   const float2* xb = x + b * kW;
   float2* yb = y + b * kW;
   if constexpr (INVERSE) {
     load_block_c64(xb, p, X);
     __syncthreads();
-    inverse_cluster<0, kM>(tab, Tw, X, Y, [&](int r, int c, float4 v) {
+    inverse_cluster<TabRing, 0, kM>(0, Tw, X, Y, [&](int r, int c, float4 v) {
       __stcs(reinterpret_cast<float4*>(yb + r * kM + kPart * p + c), v);
     });
   } else {
     float2* dp = yb + static_cast<size_t>(kPart) * p * kM;
-    forward_cluster(StripC64{xb}, tab, Tw, X, Y, [&](int r, int c, float4 d) {
+    forward_cluster<TabRing>(StripC64{xb}, 0, Tw, X, Y, [&](int r, int c, float4 d) {
       __stcs(reinterpret_cast<float4*>(dp + r * kM + c), d);
     });
+    cooperative_groups::this_cluster().sync();   // the ring's closing barrier
   }
 }
 
 template <bool INVERSE>
 int launch_cluster(const void* x, const void* tab, const void* Tw, void* y, int B, void* stream) {
-  const int smem = static_cast<int>(2 * fused::cl::kBuf);
+  const int smem = static_cast<int>(ClusterSmem::kBytes);
   const cudaError_t err = fused::set_smem(fourstep_cluster_kernel<INVERSE>, smem);
   if (err != cudaSuccess) return err;
   fourstep_cluster_kernel<INVERSE><<<fused::cl::kRanks * B, fused::cl::kThreads, smem,
                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(tab),
+      static_cast<const float2*>(x), static_cast<const __nv_bfloat16*>(tab),
       static_cast<const float2*>(Tw), static_cast<float2*>(y));
   return cudaGetLastError();
 }
@@ -278,8 +289,9 @@ int launch_cluster(const void* x, const void* tab, const void* Tw, void* y, int 
 
 // x, y complex64 [B, m, m] (B >= 1); tab the table of F (inverse = 0) or
 // Fi = conj(F)/m (inverse = 1), bf16-rounded: at m in {64, 128} its bf16
-// [2, m, m] (re, im) planes, at m = 256 float2 [m, m]; Tw the twiddle,
-// float2 [m, m]; all 16-byte aligned. Returns the CUDA error code of the
+// [2, m, m] (re, im) planes, at m = 256 its packed bf16 k-slices
+// (kernels/fused.py:cluster_slices); Tw the twiddle, float2 [m, m]; all
+// 16-byte aligned. Returns the CUDA error code of the
 // launch (0 on success); -1 for an unsupported m or B < 1.
 extern "C" int fourstep_fft(const void* x, const void* tab, const void* Tw, void* y, int B,
                             int m, int inverse, void* stream) {

@@ -57,20 +57,22 @@
 // persistent grid with producer warps is the model for that.
 //
 // m = 256 (W = 65536): every apply runs a window on a cluster of four CTAs
-// of 16 warps (fused_cluster.cuh), the inverse (inverse_cluster) the
+// of four warpgroups (fused_cluster.cuh), the inverse (inverse_cluster) the
 // mirror of the measure's forward: CTA p holds row block p of G, computes
 // row block p of B2 = bf16((G Fi) * conj(T)), and after a cluster exchange
-// the centre rows of y = Fi B2 on strip p, 128 bytes of each wire row (or
-// 64 float32 samples of each output row). G's row block comes from the
-// stored D (apply_spec_cluster_kernel) or from the forward transform
-// recomputed on the cluster (forward_cluster over StripI8 or StripPlanes;
+// the centre rows of y = Fi B2 on strip p (y^T = B2^T Fi, each warpgroup
+// 32 of the 128 rows), 128 bytes of each wire row (or 64 float32 samples
+// of each output row). G's row block comes from the stored D
+// (apply_spec_cluster_kernel) or from the forward transform recomputed on
+// the cluster (forward_cluster over StripI8 or StripPlanes;
 // apply_i8_cluster_kernel, apply_planes_cluster_kernel), whose epilogue
 // weights the float32 D into G over Y: once forward_cluster's last
-// barrier has passed, no other CTA reads Y. Shared memory 131,072 bytes:
-// two buffers of 64 kB, one holding G and then the gathered strip of B2,
-// the other the forward's window strip and C's row block, then B2's row
-// block, which the other CTAs gather. Fi and F come from L2 as the
-// products' table operands.
+// barrier has passed, no other CTA reads Y. F and Fi stream through the
+// table ring (the recompute applies' ring runs F's 32 slices, then Fi's),
+// the products on wgmma. Shared memory 196,688 bytes: two buffers of 64
+// kB, one holding G and then the gathered strip of B2, the other the
+// forward's window strip and C's row block, then B2's row block, which
+// the other CTAs gather; the ring's four 16 kB slots and its barriers.
 
 #include "fused_cluster.cuh"
 #include "fused_common.cuh"
@@ -400,6 +402,13 @@ int launch_planes(const void* pre, const void* pim, const void* advance, const v
 
 // --- m = 256: a window a cluster of four CTAs (fused_cluster.cuh).
 
+// Shared memory of the m = 256 applies: X, Y (kBuf each), the table ring.
+struct ApplyClusterSmem {
+  static constexpr size_t kX = 0, kY = cl::kBuf, kRing = 2 * cl::kBuf;
+  static constexpr size_t kBars = kRing + cl::kRingBytes;
+  static constexpr size_t kBytes = kBars + cl::kRingBarBytes;
+};
+
 // The wire epilogue of the m = 256 applies: output row n2 (in [m/4, 3m/4)),
 // columns c, c + 1 of strip p quantized to two wire pairs of the window's
 // block [m/2, 2m].
@@ -437,13 +446,17 @@ __global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThread
 apply_spec_cluster_kernel(const __nv_bfloat16* __restrict__ dre,
                           const __nv_bfloat16* __restrict__ dim,
                           const float* __restrict__ advance, const float* __restrict__ phase_re,
-                          const float* __restrict__ phase_im, const float2* __restrict__ Fi,
-                          const float2* __restrict__ Tw, int8_t* __restrict__ out) {
+                          const float* __restrict__ phase_im,
+                          const __nv_bfloat16* __restrict__ Fi, const float2* __restrict__ Tw,
+                          int8_t* __restrict__ out) {
   using namespace cl;
+  using S = ApplyClusterSmem;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
-  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
+  using TabRing = Ring<S::kRing, S::kBars, 1>;
+  TabRing::start(Fi, Fi);
+  const int p = TabRing::rank();
   const size_t b = blockIdx.x / kRanks;
 
   // Row block p of G: 16-byte vectors of D (8 elements of a row), weighted.
@@ -481,32 +494,35 @@ apply_spec_cluster_kernel(const __nv_bfloat16* __restrict__ dre,
     }
   }
   __syncthreads();
-  inverse_cluster<kM / 4, kM / 2>(Fi, Tw, X, Y, ClusterWire{out + b * kW, p});
+  inverse_cluster<TabRing, kM / 4, kM / 2>(0, Tw, X, Y, ClusterWire{out + b * kW, p});
 }
 
 // The m = 256 recompute body: forward_cluster over the window's strip
 // loader `load`, its epilogue writing row block p of G = bf16(D w) from the
 // float32 D into Y (ramp: the window's Ramp), then inverse_cluster's
-// centre rows to `epi`.
-template <class Load, class Epi>
+// centre rows to `epi`; PIPE as in fused_cluster.cuh's ring_product.
+template <bool PIPE, class Load, class Epi>
 __device__ __forceinline__ void apply_cluster_window(const Load& load, const Ramp<cl::kM>& ramp,
-                                                     const float2* __restrict__ F,
-                                                     const float2* __restrict__ Fi,
+                                                     const __nv_bfloat16* __restrict__ F,
+                                                     const __nv_bfloat16* __restrict__ Fi,
                                                      const float2* __restrict__ Tw,
                                                      const Epi& epi) {
   using namespace cl;
+  using S = ApplyClusterSmem;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + kBuf);
-  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
-  forward_cluster(load, F, Tw, X, Y, [&](int r, int c, float4 d) {
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem + S::kX);
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
+  using TabRing = Ring<S::kRing, S::kBars, 2>;
+  TabRing::start(F, Fi);
+  const int p = TabRing::rank();
+  forward_cluster<TabRing, PIPE>(load, 0, Tw, X, Y, [&](int r, int c, float4 d) {
     const uint2 gw = ramp.g_pair(kPart * p + r, c, make_float2(d.x, d.y), make_float2(d.z, d.w));
     const int o = tc::swz<kM>(r, c);
     *reinterpret_cast<uint32_t*>(Y + o) = gw.x;
     *reinterpret_cast<uint32_t*>(Y + kPlane + o) = gw.y;
   });
   __syncthreads();   // G complete; C's row block in X read
-  inverse_cluster<kM / 4, kM / 2>(Fi, Tw, Y, X, epi);
+  inverse_cluster<TabRing, kM / 4, kM / 2, PIPE>(2 * kSlices, Tw, Y, X, epi);
 }
 
 // The recompute path at m = 256: the cluster of window b = blockIdx.x / 4
@@ -515,12 +531,12 @@ __device__ __forceinline__ void apply_cluster_window(const Load& load, const Ram
 __global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
 apply_i8_cluster_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advance,
                         const float* __restrict__ phase_re, const float* __restrict__ phase_im,
-                        const float2* __restrict__ F, const float2* __restrict__ Fi,
+                        const __nv_bfloat16* __restrict__ F, const __nv_bfloat16* __restrict__ Fi,
                         const float2* __restrict__ Tw, int8_t* __restrict__ out, int N) {
   using namespace cl;
   const size_t b = blockIdx.x / kRanks;
   const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
-  apply_cluster_window(StripI8{raw + b * kW, static_cast<size_t>(N) * kW},
+  apply_cluster_window<false>(StripI8{raw + b * kW, static_cast<size_t>(N) * kW},
                        Ramp<kM>(advance[b], phase_re[b], phase_im[b]), F, Fi, Tw,
                        ClusterWire{out + b * kW, p});
 }
@@ -531,14 +547,15 @@ apply_i8_cluster_kernel(const int8_t* __restrict__ raw, const float* __restrict_
 __global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
 apply_planes_cluster_kernel(const __nv_bfloat16* __restrict__ pre,
                             const __nv_bfloat16* __restrict__ pim,
-                            const float* __restrict__ advance, const float2* __restrict__ F,
-                            const float2* __restrict__ Fi, const float2* __restrict__ Tw,
+                            const float* __restrict__ advance,
+                            const __nv_bfloat16* __restrict__ F,
+                            const __nv_bfloat16* __restrict__ Fi, const float2* __restrict__ Tw,
                             float* __restrict__ yre_out, float* __restrict__ yim_out, int N) {
   using namespace cl;
   const size_t b = blockIdx.x / kRanks;
   const size_t top = b * (kW / 2);   // block t of channel n; also the window's output
   const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
-  apply_cluster_window(StripPlanes{pre + top, pim + top, static_cast<size_t>(N) * (kW / 2)},
+  apply_cluster_window<true>(StripPlanes{pre + top, pim + top, static_cast<size_t>(N) * (kW / 2)},
                        Ramp<kM>(advance[b], 1.f, 0.f), F, Fi, Tw,
                        ClusterFloat{yre_out + top, yim_out + top, p});
 }
@@ -546,14 +563,14 @@ apply_planes_cluster_kernel(const __nv_bfloat16* __restrict__ pre,
 int launch_cluster(const void* dre, const void* dim, const void* advance, const void* phase_re,
                    const void* phase_im, const void* Fi, const void* Tw, void* out, int T1, int N,
                    void* stream) {
-  const int smem = static_cast<int>(2 * cl::kBuf);
+  const int smem = static_cast<int>(ApplyClusterSmem::kBytes);
   const cudaError_t err = set_smem(apply_spec_cluster_kernel, smem);
   if (err != cudaSuccess) return err;
   apply_spec_cluster_kernel<<<cl::kRanks * T1 * N, cl::kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(dre), static_cast<const __nv_bfloat16*>(dim),
       static_cast<const float*>(advance), static_cast<const float*>(phase_re),
-      static_cast<const float*>(phase_im), static_cast<const float2*>(Fi),
+      static_cast<const float*>(phase_im), static_cast<const __nv_bfloat16*>(Fi),
       static_cast<const float2*>(Tw), static_cast<int8_t*>(out));
   return cudaGetLastError();
 }
@@ -561,14 +578,14 @@ int launch_cluster(const void* dre, const void* dim, const void* advance, const 
 int launch_i8_cluster(const void* raw, const void* advance, const void* phase_re,
                       const void* phase_im, const void* F, const void* Fi, const void* Tw,
                       void* out, int T1, int N, void* stream) {
-  const int smem = static_cast<int>(2 * cl::kBuf);
+  const int smem = static_cast<int>(ApplyClusterSmem::kBytes);
   const cudaError_t err = set_smem(apply_i8_cluster_kernel, smem);
   if (err != cudaSuccess) return err;
   apply_i8_cluster_kernel<<<cl::kRanks * T1 * N, cl::kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(raw), static_cast<const float*>(advance),
       static_cast<const float*>(phase_re), static_cast<const float*>(phase_im),
-      static_cast<const float2*>(F), static_cast<const float2*>(Fi),
+      static_cast<const __nv_bfloat16*>(F), static_cast<const __nv_bfloat16*>(Fi),
       static_cast<const float2*>(Tw), static_cast<int8_t*>(out), N);
   return cudaGetLastError();
 }
@@ -576,14 +593,15 @@ int launch_i8_cluster(const void* raw, const void* advance, const void* phase_re
 int launch_planes_cluster(const void* pre, const void* pim, const void* advance, const void* F,
                           const void* Fi, const void* Tw, void* yre, void* yim, int T1, int N,
                           void* stream) {
-  const int smem = static_cast<int>(2 * cl::kBuf);
+  const int smem = static_cast<int>(ApplyClusterSmem::kBytes);
   const cudaError_t err = set_smem(apply_planes_cluster_kernel, smem);
   if (err != cudaSuccess) return err;
   apply_planes_cluster_kernel<<<cl::kRanks * T1 * N, cl::kThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
-      static_cast<const float*>(advance), static_cast<const float2*>(F),
-      static_cast<const float2*>(Fi), static_cast<const float2*>(Tw), static_cast<float*>(yre),
+      static_cast<const float*>(advance), static_cast<const __nv_bfloat16*>(F),
+      static_cast<const __nv_bfloat16*>(Fi), static_cast<const float2*>(Tw),
+      static_cast<float*>(yre),
       static_cast<float*>(yim), N);
   return cudaGetLastError();
 }
@@ -591,7 +609,8 @@ int launch_planes_cluster(const void* pre, const void* pim, const void* advance,
 }  // namespace fused
 
 // dre, dim bf16 [T-1, N, m, m]; advance, phase_re, phase_im float [T-1, N];
-// tables Fi (bf16-rounded conj(F)/m) and Tw float2 [m, m]; out int8
+// tables Fi (bf16-rounded conj(F)/m) and Tw float2 [m, m] (at m = 256 Fi as
+// the packed bf16 k-slices of kernels/fused.py:cluster_slices); out int8
 // [T-1, N, m/2, 2m]; m in {64, 128, 256}. Returns the CUDA error code of
 // the launch (0 on success); -1 for an unsupported m or no window.
 extern "C" int fused_apply_spec_i8(const void* dre, const void* dim, const void* advance,
@@ -614,7 +633,8 @@ extern "C" int fused_apply_spec_i8(const void* dre, const void* dim, const void*
 }
 
 // raw int8 [T, N, m/2, 2m]; advance, phase_re, phase_im float [T-1, N];
-// tables F, Fi (bf16-rounded) and Tw float2 [m, m]; out int8
+// tables F, Fi (bf16-rounded) and Tw float2 [m, m] (at m = 256 F and Fi as
+// the packed bf16 k-slices of kernels/fused.py:cluster_slices); out int8
 // [T-1, N, m/2, 2m]; m in {64, 128, 256}. Returns the CUDA error code of
 // the launch (0 on success); -1 for an unsupported m.
 extern "C" int fused_apply_i8(const void* raw, const void* advance, const void* phase_re,
@@ -636,7 +656,8 @@ extern "C" int fused_apply_i8(const void* raw, const void* advance, const void* 
 }
 
 // pre, pim bf16 [T, N, m/2, m]; advance float [T-1, N]; tables F, Fi, Tw
-// float2 [m, m]; outputs yre, yim float [T-1, N, m/2, m]; m in {64, 128,
+// float2 [m, m] (at m = 256 F and Fi as the packed bf16 k-slices of
+// kernels/fused.py:cluster_slices); outputs yre, yim float [T-1, N, m/2, m]; m in {64, 128,
 // 256}. Returns the CUDA error code of the launch (0 on success); -1 for an
 // unsupported m.
 extern "C" int fused_apply_planes(const void* pre, const void* pim, const void* advance,

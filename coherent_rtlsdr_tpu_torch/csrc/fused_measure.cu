@@ -48,18 +48,25 @@
 // m = 256 (W = 65536): no CTA can hold a window (the layout above needs
 // 786 kB of shared memory, and a 16-row strip at full width 256 float32
 // accumulators a thread), so measure_ref_cluster_kernel,
-// measure_cluster_kernel<STORE_D> and measure_planes_cluster_kernel run a
-// window on a cluster of four CTAs of 16 warps (fused_cluster.cuh:
-// forward_cluster over a strip loader, StripI8 or StripPlanes), and the
+// measure_cluster_kernel<STORE_D> (fused_measure_i8_spec with the D store,
+// fused_measure_i8 without) and measure_planes_cluster_kernel run a window
+// on a cluster of four CTAs of four warpgroups (fused_cluster.cuh:
+// forward_cluster over a strip loader, StripI8 or StripPlanes; F streamed
+// once a cluster through the table ring, the products on wgmma), and the
 // phase zoom (cluster_phase_zoom) sums across the cluster in rank order.
 // One body, measure_cluster_window, serves both channel kernels, as
-// measure_window does below m = 256. Shared memory a CTA, 196,704 bytes:
-// X (64 kB: the window's strip, then C's row block, then the zoom's
-// scratch), Y (64 kB: C's strip, which the other CTAs gather) and Z; G
-// [64][256] float32 overlays Y and Z. The products take their table
-// operand (F, 512 kB of float32 pairs) from L2, ~3 MB a CTA, which bounds
-// them rather than the 268 MFLOP of a window (0.36 ms over 1,323 windows
-// at the bf16 peak).
+// measure_window does below m = 256. The second product's D is staged as
+// float32 over G's place, then one pass of 16-byte pairs stores D (bf16),
+// forms G = D conj(R) in place and sums the energies: the staging keeps
+// the epilogue's R loads and registers apart from the accumulators (128
+// registers a thread, no spill). Shared memory a CTA, 196,784 bytes: X
+// (64 kB: the window's strip, then C's row block, then the zoom's
+// scratch), Y (64 kB: C's strip, which the other CTAs gather), Z (64 kB:
+// the ring's four slots while the products run), the block_sum scratch,
+// the partial sums and the ring's barriers; G [64][256] float32 overlays Y
+// and Z once the products are done. What bounds them: see fused_cluster.cuh;
+// the SIMT phase zoom and the epilogue's pass add ~0.6 ms to a forward
+// transform's ~1.3 at 1,323 windows.
 
 #include "fused_cluster.cuh"
 #include "fused_common.cuh"
@@ -557,21 +564,24 @@ __device__ __forceinline__ ZoomResult cluster_phase_zoom(float2* G, float2* aux,
 }
 
 // Shared memory of the m = 256 measure kernels: X, Y, Z (64 kB each; see
-// forward_cluster, G over Y and Z), then the block_sum scratch and the
-// partial sums the other CTAs read.
+// forward_cluster; the table ring's slots in Z, G over Y and Z once the
+// products are done), then the block_sum scratch, the partial sums the
+// other CTAs read and the ring's barriers.
 struct MeasureClusterSmem {
   static constexpr size_t kX = 0, kY = cl::kBuf, kZ = 2 * cl::kBuf;
+  static_assert(cl::kRingBytes <= cl::kBuf, "the ring fits in Z");
   static constexpr size_t kRed = 3 * cl::kBuf;
   static constexpr size_t kPartOff = kRed + cl::kWarps * sizeof(float);
-  static constexpr size_t kBytes = kPartOff + 8 * sizeof(float);
+  static constexpr size_t kBars = kPartOff + 8 * sizeof(float);
+  static constexpr size_t kBytes = kBars + cl::kRingBarBytes;
 };
 
 // m = 256, reference mode: the cluster of window t (blockIdx.y) writes R[t]
 // (float2 [m, m]) and eref[t] = sum |R|^2.
 __global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
-measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw, const float2* __restrict__ F,
-                           const float2* __restrict__ Tw, float2* __restrict__ R,
-                           float* __restrict__ eref) {
+measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw,
+                           const __nv_bfloat16* __restrict__ F, const float2* __restrict__ Tw,
+                           float2* __restrict__ R, float* __restrict__ eref) {
   using S = MeasureClusterSmem;
   using namespace cl;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -579,12 +589,14 @@ measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw, const float2* __r
   __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem + S::kY);
   float* red = reinterpret_cast<float*>(smem + S::kRed);
   float* part = reinterpret_cast<float*>(smem + S::kPartOff);
+  using TabRing = Ring<S::kZ, S::kBars, 1>;
+  TabRing::start(F, F);
 
   const int t = blockIdx.y;
-  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int p = TabRing::rank();
   float2* Rt = R + static_cast<size_t>(t) * kW + static_cast<size_t>(kPart) * p * kM;
   float e = 0.f;
-  forward_cluster(StripI8{ref_raw + static_cast<size_t>(t) * kW, kW}, F, Tw, X, Y,
+  forward_cluster<TabRing>(StripI8{ref_raw + static_cast<size_t>(t) * kW, kW}, 0, Tw, X, Y,
                   [&](int r, int c, float4 d) {
                     *reinterpret_cast<float4*>(Rt + r * kM + c) = d;
                     e += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
@@ -608,7 +620,7 @@ measure_ref_cluster_kernel(const int8_t* __restrict__ ref_raw, const float2* __r
 // of rank 0 with the window's sums.
 template <class Load, class RAt, class Out>
 __device__ __forceinline__ void measure_cluster_window(const Load& load,
-                                                       const float2* __restrict__ F,
+                                                       const __nv_bfloat16* __restrict__ F,
                                                        const float2* __restrict__ Tw, int t,
                                                        size_t win, RAt&& r_at, const Out& out) {
   using S = MeasureClusterSmem;
@@ -620,19 +632,33 @@ __device__ __forceinline__ void measure_cluster_window(const Load& load,
   float2* aux = reinterpret_cast<float2*>(smem + S::kX);  // over X, after the products
   float* red = reinterpret_cast<float*>(smem + S::kRed);
   float* part = reinterpret_cast<float*>(smem + S::kPartOff);
+  using TabRing = Ring<S::kZ, S::kBars, 1>;
+  TabRing::start(F, F);
 
-  const int p = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int p = TabRing::rank();
   const size_t row0 = static_cast<size_t>(kPart) * p * kM;   // this block's first element
+  // D's row block staged as float32 over Y and Z (where G goes), then one
+  // pass of 16-byte pairs, row-major: D stored, G = D conj(R) in place,
+  // the energies. (The staging keeps the epilogue's loads and registers
+  // apart from the products' accumulators.)
+  forward_cluster<TabRing>(load, 0, Tw, X, Y, [&](int r, int c, float4 d) {
+    *reinterpret_cast<float4*>(G + r * kM + c) = d;
+  });
+  __syncthreads();
   float esig = 0.f, eg = 0.f;
-  forward_cluster(load, F, Tw, X, Y, [&](int r, int c, float4 d) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kPart * kM / 2; i += kThreads) {
+    const int r = 2 * i / kM, c = 2 * i % kM;
+    float4* gp = reinterpret_cast<float4*>(G + r * kM + c);
+    const float4 d = *gp;
     out.d(win * kW + row0 + r * kM + c, d);
     const float4 rr = r_at(r, c);
     const float g0re = d.x * rr.x + d.y * rr.y, g0im = d.y * rr.x - d.x * rr.y;
     const float g1re = d.z * rr.z + d.w * rr.w, g1im = d.w * rr.z - d.z * rr.w;
-    *reinterpret_cast<float4*>(G + r * kM + c) = make_float4(g0re, g0im, g1re, g1im);
+    *gp = make_float4(g0re, g0im, g1re, g1im);
     esig += d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
     eg += g0re * g0re + g0im * g0im + g1re * g1re + g1im * g1im;
-  });
+  }
   float sums[2] = {block_sum<kThreads>(esig, red), block_sum<kThreads>(eg, red)};
   // block_sum's barriers: G complete, X free for aux.
   const ZoomResult z = cluster_phase_zoom(G, aux, part, red, sums);
@@ -644,7 +670,7 @@ __device__ __forceinline__ void measure_cluster_window(const Load& load,
 // measure_ref_cluster_kernel; the outputs of measure_kernel<256, STORE_D>.
 template <bool STORE_D>
 __global__ void __cluster_dims__(cl::kRanks, 1, 1) __launch_bounds__(cl::kThreads, 1)
-measure_cluster_kernel(const int8_t* __restrict__ raw, const float2* __restrict__ F,
+measure_cluster_kernel(const int8_t* __restrict__ raw, const __nv_bfloat16* __restrict__ F,
                        const float2* __restrict__ Tw, const float2* __restrict__ R,
                        const float* __restrict__ eref, float* __restrict__ lag_out,
                        float* __restrict__ zre_out, float* __restrict__ zim_out,
@@ -671,7 +697,7 @@ measure_planes_cluster_kernel(const __nv_bfloat16* __restrict__ pre,
                               const __nv_bfloat16* __restrict__ pim,
                               const __nv_bfloat16* __restrict__ rre,
                               const __nv_bfloat16* __restrict__ rim,
-                              const float2* __restrict__ F, const float2* __restrict__ Tw,
+                              const __nv_bfloat16* __restrict__ F, const float2* __restrict__ Tw,
                               float* __restrict__ lag_out, float* __restrict__ zabs_out,
                               float* __restrict__ esig_out, float* __restrict__ eg_out) {
   using namespace cl;
@@ -702,7 +728,7 @@ int launch_ref_cluster(const void* ref_raw, const void* F, const void* Tw, void*
   if (err != cudaSuccess) return err;
   measure_ref_cluster_kernel<<<dim3(cl::kRanks, T1), cl::kThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(ref_raw), static_cast<const float2*>(F),
+      static_cast<const int8_t*>(ref_raw), static_cast<const __nv_bfloat16*>(F),
       static_cast<const float2*>(Tw), static_cast<float2*>(R), static_cast<float*>(eref));
   return cudaGetLastError();
 }
@@ -716,7 +742,7 @@ int launch_cluster(const void* raw, const void* F, const void* Tw, const void* R
   if (err != cudaSuccess) return err;
   measure_cluster_kernel<STORE_D><<<dim3(cl::kRanks * N, T1), cl::kThreads, smem,
                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(raw), static_cast<const float2*>(F),
+      static_cast<const int8_t*>(raw), static_cast<const __nv_bfloat16*>(F),
       static_cast<const float2*>(Tw), static_cast<const float2*>(R),
       static_cast<const float*>(eref), static_cast<float*>(lag), static_cast<float*>(zre),
       static_cast<float*>(zim), static_cast<float*>(mag), static_cast<float*>(papr),
@@ -734,14 +760,16 @@ int launch_planes_cluster(const void* pre, const void* pim, const void* rre, con
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(pim),
       static_cast<const __nv_bfloat16*>(rre), static_cast<const __nv_bfloat16*>(rim),
-      static_cast<const float2*>(F), static_cast<const float2*>(Tw), static_cast<float*>(lag),
+      static_cast<const __nv_bfloat16*>(F), static_cast<const float2*>(Tw),
+      static_cast<float*>(lag),
       static_cast<float*>(zabs), static_cast<float*>(esig), static_cast<float*>(eg));
   return cudaGetLastError();
 }
 
 }  // namespace fused
 
-// ref_raw int8 [T, m/2, 2m]; tables F, Tw float2 [m, m]; outputs R float2
+// ref_raw int8 [T, m/2, 2m]; tables F, Tw float2 [m, m] (at m = 256 F as
+// the packed bf16 k-slices of kernels/fused.py:cluster_slices); outputs R float2
 // [T-1, m, m] and eref float [T-1]; m in {64, 128, 256}. Returns the CUDA
 // error code of the launch (0 on success); -1 for an unsupported m.
 extern "C" int fused_measure_ref(const void* ref_raw, const void* F, const void* Tw, void* R,
@@ -758,7 +786,8 @@ extern "C" int fused_measure_ref(const void* ref_raw, const void* F, const void*
   }
 }
 
-// raw int8 [T, N, m/2, 2m]; tables F, Tw float2 [m, m]; R float2 [T-1, m, m]
+// raw int8 [T, N, m/2, 2m]; tables F, Tw float2 [m, m] (at m = 256 F as the
+// packed bf16 k-slices of kernels/fused.py:cluster_slices); R float2 [T-1, m, m]
 // and eref float [T-1] from fused_measure_ref; outputs lag, zre, zim, mag,
 // papr float [T-1, N] and dre, dim bf16 [T-1, N, m, m]; m in {64, 128,
 // 256}. Returns the CUDA error code of the launch (0 on success); -1 for an
@@ -804,7 +833,8 @@ extern "C" int fused_measure_i8(const void* raw, const void* F, const void* Tw, 
 }
 
 // pre, pim bf16 [T, N, m/2, m]; rre, rim bf16 [T-1, m, m]; tables F, Tw
-// float2 [m, m]; outputs lag, zabs, esig, eg float [T-1, N]; m in {64,
+// float2 [m, m] (at m = 256 F as the packed bf16 k-slices of
+// kernels/fused.py:cluster_slices); outputs lag, zabs, esig, eg float [T-1, N]; m in {64,
 // 128, 256}. Returns the CUDA error code of the launch (0 on success); -1
 // for an unsupported m.
 extern "C" int fused_measure_planes(const void* pre, const void* pim, const void* rre,

@@ -2,8 +2,10 @@
 // measure and apply kernel of fused_measure.cu / fused_apply.cu through
 // fused_common.cuh): bf16 matrices in swizzled shared memory, ldmatrix
 // fragment loads, the mma.sync m16n8k16 bf16 x bf16 -> f32 product, the
-// twiddle, the complex products of a warp's 16-row strip, named barriers
-// between the warps of a warp-specialised block, and the persistent grid.
+// twiddle, the complex products of a warp's 16-row strip, the warpgroup
+// product wgmma (the m = 256 cluster kernels, fused_cluster.cuh), named
+// barriers between the warps of a warp-specialised block, and the
+// persistent grid.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 (row-major):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -62,6 +64,16 @@ __device__ __forceinline__ void ldsm_a(const __nv_bfloat16* base, int r0, int k0
                                        uint32_t (&d)[4]) {
   const int l = threadIdx.x & 31;
   ldsm_x4(smem_addr(base + swz<COLS>(r0 + (l & 15), k0 + (l >> 4) * 8)), d);
+}
+
+// The A fragment of rows r0..r0+15, k0..k0+15 of a matrix stored
+// transposed, [k][row] (A[r][k] = base[k][r]), through transposed ldmatrix.
+template <int COLS>
+__device__ __forceinline__ void ldsm_a_trans(const __nv_bfloat16* base, int r0, int k0,
+                                             uint32_t (&d)[4]) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4_trans(smem_addr(base + swz<COLS>(k0 + (l & 7) + (l >> 4) * 8, r0 + ((l >> 3) & 1) * 8)),
+                d);
 }
 
 template <int COLS>
@@ -229,6 +241,76 @@ __device__ __forceinline__ void strip_product_a(const uint32_t (&cre)[M / 16][4]
              bre[2 * h + 1], bim[2 * h], bim[2 * h + 1]);
     }
   }
+}
+
+// --- wgmma (sm_90a only). A warpgroup (four consecutive warps, the first a
+// multiple of 4) multiplies a 64 x 16 bf16 A held in registers (each warp
+// its 16 rows, the mma.sync A fragment above) by a 16 x N bf16 B read from
+// shared memory through a descriptor, into 64 x N float32 accumulators
+// (each warp its 16 rows: d[j][e] is the mma.sync C fragment of n8 tile j).
+// SCALE_A = -1 negates A exactly. The products are asynchronous: fence
+// before the first after the registers were written, commit, then wait.
+
+// The descriptor of a B operand stored K-major without swizzle: 8 x 8 core
+// matrices of 128 contiguous bytes, `lbo` bytes from a core matrix to its
+// neighbour along k, `sbo` bytes from one group of 8 rows (n) to the next.
+__device__ __forceinline__ uint64_t desc_k(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, %37, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_A), "r"(1));
+}
+
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma_n32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, %21, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_A), "r"(1));
+}
+
+template <int N, int SCALE_A>
+__device__ __forceinline__ void wgmma(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
+  if constexpr (N == 64)
+    wgmma_n64<SCALE_A>(d, a, b);
+  else
+    wgmma_n32<SCALE_A>(d, a, b);
 }
 
 // Named barriers (id 1..15; 0 is __syncthreads): `count` threads, a multiple

@@ -14,8 +14,9 @@ that ``packed_tables`` builds once an instance; the inverse runs transposed
 (C^T = Fi G^T, x^T = B^T Fi), which F, Fi and the twiddle being symmetric
 allows. A persistent grid of one CTA an SM walks the batch while producer
 warps stream the next window in (see the note in ``csrc/fourstep.cu``). At
-m = 256 (W = 65536) a transform runs on a cluster of four CTAs that read F
-or Fi as float32 pairs from L2 (the packed planes, 256 kB, fit no CTA).
+m = 256 (W = 65536) a transform runs on a cluster of four CTAs (the packed
+planes, 256 kB, fit no CTA), which stream F or Fi through shared memory as
+the bf16 k-slices of ``fused.cluster_slices``.
 """
 
 import functools
@@ -23,7 +24,7 @@ import functools
 import torch
 
 from coherent_rtlsdr_tpu_torch.kernels.fft4step import FFT4Step
-from coherent_rtlsdr_tpu_torch.kernels.fused import resolve_device
+from coherent_rtlsdr_tpu_torch.kernels.fused import CLUSTER_M, cluster_slices, resolve_device
 
 COUNTS = ("fft_launches", "ifft_launches", "fft_plain_runs", "ifft_plain_runs")
 
@@ -45,7 +46,8 @@ class FFT4StepKernel:
         self.fft_len = fft_len
         self.m = self.plain.m
         self.device = self.plain.device
-        self.f_packed, self.fi_packed = packed_tables(self.plain)
+        self.f_packed, self.fi_packed = (cluster_slices(self.plain) if self.m == CLUSTER_M
+                                         else packed_tables(self.plain))
         self.reset_counts()
 
     def reset_counts(self):

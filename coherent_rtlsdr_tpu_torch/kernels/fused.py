@@ -67,6 +67,29 @@ KERNELS = ("measure_ref", "measure_spec", "apply_spec_i8", "measure_i8", "apply_
 COUNTS = tuple(f"{k}_launches" for k in KERNELS) + tuple(f"{k}_plain_runs" for k in KERNELS)
 
 
+# The m whose kernels run a window on a cluster of four CTAs and take F and
+# Fi as packed k-slices (``cluster_slices``).
+CLUSTER_M = 256
+SLICE_K = 16
+
+
+def cluster_slices(fft: FFT4Step):
+    """F and Fi = conj(F)/m of a bf16 ``FFT4Step`` as the m = 256 cluster
+    kernels stream them (``csrc/fused_cluster.cuh``): bf16 ``[m/16 (slice),
+    2 (re, im), m/8, 2, 8, 8]``, slice s holding rows n and columns k in
+    [16 s, 16 s + 16) of each plane in 8 x 8 core matrices, (n // 8, k % 16
+    // 8) in that order, each row n % 8 of 8 contiguous k. The values are the
+    bf16-rounded tables, unchanged."""
+    m = fft.m
+
+    def slices(re, im):
+        planes = torch.stack([re, im]).to(torch.bfloat16)           # [2, n, k]
+        x = planes.reshape(2, m // 8, 8, m // SLICE_K, 2, 8)         # pl, G, n8, s, h, k8
+        return x.permute(3, 0, 1, 4, 2, 5).contiguous()              # s, pl, G, h, n8, k8
+
+    return slices(fft.fre, fft.fim), slices(fft.fire, fft.fiim)
+
+
 def _cmul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
@@ -89,6 +112,9 @@ class FusedPipelineKernels:
         # The four-step tables: F and conj(F)/m bf16-rounded (the JAX kernel
         # casts them to bf16), the twiddle float32.
         self.fft = FFT4Step(fft_len, self.device)
+        # At m = 256 the kernels take F and Fi as packed k-slices, built once.
+        self.f_slices, self.fi_slices = (cluster_slices(self.fft) if m == CLUSTER_M
+                                         else (None, None))
         self.kg = self.fft.freq_index_grid().to(torch.int64)
         self.fg = self.fft.signed_freq_grid()
         self.reset_counts()

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from coherent_rtlsdr_tpu_torch.kernels.fused import CLUSTER_M, SLICE_K
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_measure.cu", "fused_apply.cu", "fourstep.cu", "probe_copy.cu")
@@ -56,49 +58,50 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in (source,) + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
+        h.update((csrc / name).read_bytes())
+    return build_dir / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def log_path(source: str) -> Path:
+def log_path(source: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """The compiler's output (the ptxas report) kept beside the library."""
-    return library_path(source).with_suffix(".log")
+    return library_path(source, csrc, build_dir).with_suffix(".log")
 
 
-def build() -> dict:
-    """Compile every source whose library or report is missing, one
-    ``nvcc`` each, in parallel. Returns ``{source: ptxas report}`` for every
-    source (the compiler's output, kept beside its library) and
-    ``{"seconds": wall time}``; raises with the compiler's output if any
-    compile fails."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
+    """Compile every source of ``csrc`` whose library or report is missing
+    from ``build_dir``, one ``nvcc`` each, in parallel. Returns ``{source:
+    ptxas report}`` for every source (the compiler's output, kept beside its
+    library) and ``{"seconds": wall time}``; raises with the compiler's
+    output if any compile fails."""
     t0 = time.perf_counter()
-    todo = [src for src in SOURCES
-            if not (library_path(src).exists() and log_path(src).exists())]
+    lib = lambda src: library_path(src, csrc, build_dir)
+    log = lambda src: log_path(src, csrc, build_dir)
+    todo = [src for src in SOURCES if not (lib(src).exists() and log(src).exists())]
     nvcc = _nvcc() if todo else None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in todo:
-        out = library_path(src)
+        out = lib(src)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         jobs.append((src, out, tmp, proc))
     failed = []
     for src, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
+        text, _ = proc.communicate()
         if proc.returncode == 0:
-            log_path(src).write_text(log)
+            log(src).write_text(text)
             os.replace(tmp, out)
         else:
-            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
+            failed.append(f"{src} (exit {proc.returncode}):\n{text}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    report = {src: log_path(src).read_text() for src in SOURCES}
+    report = {src: log(src).read_text() for src in SOURCES}
     report["seconds"] = time.perf_counter() - t0
     return report
 
@@ -193,10 +196,11 @@ ENTRY_POINTS = (
 
 
 @functools.lru_cache(maxsize=None)
-def _functions() -> dict:
-    """The C entry points by name, one kernel each."""
-    build()
-    libs = {src: ctypes.CDLL(str(library_path(src))) for src in SOURCES}
+def _functions(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
+    """The C entry points by name, one kernel each, of the sources in
+    ``csrc`` built into ``build_dir``."""
+    build(csrc, build_dir)
+    libs = {src: ctypes.CDLL(str(library_path(src, csrc, build_dir))) for src in SOURCES}
     fns = {}
     for src, name, n_ptr, n_int in ENTRY_POINTS:
         fn = getattr(libs[src], name)
@@ -235,10 +239,24 @@ def _dense(name, x: torch.Tensor):
 @functools.lru_cache(maxsize=None)
 def _tables(fft):
     """Interleaved (re, im) float32 [m, m, 2] tables of a bf16
-    ``FFT4Step`` on its device: F and conj(F)/m as their bf16-rounded
-    values, and the twiddle."""
+    ``FFT4Step`` on its device, built once an instance: F and conj(F)/m as
+    their bf16-rounded values, and the twiddle."""
     pair = lambda re, im: torch.stack([re, im], dim=-1).contiguous()
     return pair(fft.fre, fft.fim), pair(fft.fire, fft.fiim), pair(fft.tre, fft.tim)
+
+
+def _fused_tables(k):
+    """F, Fi and the twiddle as the measure and apply kernels take them: the
+    float32 pairs of ``_tables``, but F and Fi as the instance's packed
+    k-slices at m = 256 (``fused.cluster_slices``)."""
+    F, Fi, Tw = _tables(k.fft)
+    if k.m == CLUSTER_M:
+        F, Fi = k.f_slices, k.fi_slices
+    return F, Fi, Tw
+
+
+# The packed k-slices of F or Fi at m = 256 (``fused.cluster_slices``).
+SLICES_SHAPE = (CLUSTER_M // SLICE_K, 2, CLUSTER_M // 8, 2, 8, 8)
 
 
 def admit(entry: str, m: int):
@@ -247,16 +265,17 @@ def admit(entry: str, m: int):
         raise ValueError(f"{entry} takes m in {ADMITTED_M[entry]}, got m = {m}")
 
 
-def _setup(k, x: torch.Tensor, fft, entry: str):
+def _setup(k, x: torch.Tensor, entry: str):
     admit(entry, k.m)
     if x.device != k.device:
         raise ValueError(f"inputs on {x.device}, kernels built for {k.device}")
-    return _functions(), _tables(fft), torch.cuda.current_stream(x.device).cuda_stream
+    return _functions(), torch.cuda.current_stream(x.device).cuda_stream
 
 
 def measure_ref(k, ref_raw: torch.Tensor):
     """Launch ``fused_measure_ref`` (see ``FusedPipelineKernels.measure_ref``)."""
-    fns, (F, _, Tw), stream = _setup(k, ref_raw, k.fft, "fused_measure_ref")
+    fns, stream = _setup(k, ref_raw, "fused_measure_ref")
+    F, _, Tw = _fused_tables(k)
     m = k.m
     T = ref_raw.shape[0]
     if T < 2:
@@ -287,7 +306,8 @@ def _measure_channels(k, raw, R, eref, store_d: bool):
     """Launch ``fused_measure_i8_spec`` (``store_d``) or ``fused_measure_i8``
     on int8 blocks against the reference spectra of ``measure_ref``."""
     name = "fused_measure_i8_spec" if store_d else "fused_measure_i8"
-    fns, (F, _, Tw), stream = _setup(k, raw, k.fft, name)
+    fns, stream = _setup(k, raw, name)
+    F, _, Tw = _fused_tables(k)
     m, dev = k.m, raw.device
     T1, N = _expect_raw(raw, name, m)
     _expect(R, "R", torch.float32, (T1, m, m, 2), dev)
@@ -320,7 +340,8 @@ def measure_i8(k, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
 
 def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
     """Launch ``fused_apply_spec_i8`` (see ``FusedPipelineKernels.apply_spec_i8``)."""
-    fns, (_, Fi, Tw), stream = _setup(k, dre, k.fft, "fused_apply_spec_i8")
+    fns, stream = _setup(k, dre, "fused_apply_spec_i8")
+    _, Fi, Tw = _fused_tables(k)
     m = k.m
     T1, N = dre.shape[:2]
     dev = dre.device
@@ -340,7 +361,8 @@ def apply_spec_i8(k, dre, dim, advance, phase_re, phase_im):
 
 def apply_i8(k, raw, advance, phase_re, phase_im):
     """Launch ``fused_apply_i8`` (see ``FusedPipelineKernels.apply_i8``)."""
-    fns, (F, Fi, Tw), stream = _setup(k, raw, k.fft, "fused_apply_i8")
+    fns, stream = _setup(k, raw, "fused_apply_i8")
+    F, Fi, Tw = _fused_tables(k)
     m, dev = k.m, raw.device
     T1, N = _expect_raw(raw, "fused_apply_i8", m)
     for name, x in (("advance", advance), ("phase_re", phase_re), ("phase_im", phase_im)):
@@ -366,7 +388,8 @@ def _expect_planes(pre, pim, dev, m):
 
 def measure_planes(k, pre, pim, rre, rim):
     """Launch ``fused_measure_planes`` (see ``FusedPipelineKernels.measure``)."""
-    fns, (F, _, Tw), stream = _setup(k, pre, k.fft, "fused_measure_planes")
+    fns, stream = _setup(k, pre, "fused_measure_planes")
+    F, _, Tw = _fused_tables(k)
     m, dev = k.m, pre.device
     T1, N = _expect_planes(pre, pim, dev, m)
     for name, x in (("rre", rre), ("rim", rim)):
@@ -384,7 +407,8 @@ def measure_planes(k, pre, pim, rre, rim):
 
 def apply_planes(k, pre, pim, advance):
     """Launch ``fused_apply_planes`` (see ``FusedPipelineKernels.apply``)."""
-    fns, (F, Fi, Tw), stream = _setup(k, pre, k.fft, "fused_apply_planes")
+    fns, stream = _setup(k, pre, "fused_apply_planes")
+    F, Fi, Tw = _fused_tables(k)
     m, dev = k.m, pre.device
     T1, N = _expect_planes(pre, pim, dev, m)
     _expect(advance, "advance", torch.float32, (T1, N), dev)
@@ -402,22 +426,19 @@ def apply_planes(k, pre, pim, advance):
 
 def fourstep(k, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Launch ``fourstep_fft`` on ``x`` complex64 ``[B, m, m]`` (see
-    ``FFT4StepKernel``), with the table of F or Fi and the float32 twiddle
-    of its plain version: the instance's packed bf16 planes at m in {64,
-    128}, the float32 pairs of ``_tables`` at m = 256 (the cluster kernel
-    reads them from L2); returns complex64 ``[B, m, m]``."""
-    fns, (F, Fi, Tw), stream = _setup(k, x, k.plain, "fourstep_fft")
+    ``FFT4StepKernel``), with the instance's packed bf16 table of F or Fi
+    (its planes at m in {64, 128}, its k-slices at m = 256) and the float32
+    twiddle of its plain version; returns complex64 ``[B, m, m]``."""
+    fns, stream = _setup(k, x, "fourstep_fft")
+    Tw = _tables(k.plain)[2]
     m, dev = k.m, x.device
     B = x.shape[0]
     if B < 1:
         raise ValueError("fourstep_fft: need at least one transform")
     _expect(x, "x", torch.complex64, (B, m, m), dev)
-    if m == 256:
-        tab = Fi if inverse else F
-        _expect(tab, "table", torch.float32, (m, m, 2), dev)
-    else:
-        tab = k.fi_packed if inverse else k.f_packed
-        _expect(tab, "table", torch.bfloat16, (2, m, m), dev)
+    tab = k.fi_packed if inverse else k.f_packed
+    _expect(tab, "table", torch.bfloat16,
+            SLICES_SHAPE if m == CLUSTER_M else (2, m, m), dev)
     for name, v in (("x", x), ("table", tab), ("twiddle", Tw)):
         _dense(name, v)
     y = torch.empty_like(x)

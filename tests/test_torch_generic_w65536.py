@@ -16,8 +16,9 @@ Bars, and why:
   * the four-step (B = 2): within 1e-3 of the JAX output's largest element
     (tests/test_torch_fourstep_tc.py: the same bf16 roundings, float32 sums
     in another order); the cluster kernel's decomposition (strips and row
-    blocks of 64, the float32-pair tables the wrapper hands it at m = 256)
-    within 1e-6 of the plain version, in its output order;
+    blocks of 64, on F and Fi as float32 pairs; the packed k-slices the
+    kernel streams are held in tests/test_torch_cluster_tc.py) within 1e-6
+    of the plain version, in its output order;
   * ``measure`` / ``apply`` (T = 3, N = 2): tests/test_torch_planes_w16384.py's
     bars, where the channel correlates (mag >= 0.1) lag atol 1e-3 samples,
     |z|, sum |D|^2 and sum |G|^2 rtol 1e-3, the same accept/reject decision
@@ -163,10 +164,9 @@ def cluster_inverse(X, Fi, Tw):
 
 
 def test_fourstep_cluster_decomposition_matches_plain():
-    """The m = 256 kernel's cut into strips and row blocks, on the tables
-    the wrapper hands it (``fused_cuda._tables``: F for the forward, Fi for
-    the inverse, the twiddle), equals the plain version in value and in its
-    output order."""
+    """The m = 256 kernel's cut into strips and row blocks, on F, Fi and
+    the twiddle as float32 pairs (``fused_cuda._tables``), equals the plain
+    version in value and in its output order."""
     k = FFT4StepKernel(W, "cpu")
     F, Fi, Tw = fused_cuda._tables(k.plain)
     x = torch.from_numpy(_signal(71))

@@ -44,22 +44,31 @@ PEAK = re.compile(r"peak at \(u, v\) = \(([-+.\d]+), ([-+.\d]+)\)")
 
 class _Feeder:
     """Publishes ``frames`` round-robin every ``period_s`` on an OS-picked
-    loopback port until stopped (the server stand-in)."""
+    loopback port until stopped (the server stand-in). With ``count``, an
+    XPUB socket waits for the client's subscription and then publishes
+    exactly ``count`` frames, all of which the subscriber receives (a PUB
+    socket drops what it sends before the subscription arrives)."""
 
-    def __init__(self, frames, period_s=0.02):
+    def __init__(self, frames, period_s=0.02, count=None):
         self.ctx = zmq.Context()
-        self.pub = self.ctx.socket(zmq.PUB)
+        self.pub = self.ctx.socket(zmq.PUB if count is None else zmq.XPUB)
         self.pub.bind("tcp://127.0.0.1:*")
         self.address = self.pub.getsockopt_string(zmq.LAST_ENDPOINT)
-        self.frames, self.period = frames, period_s
+        self.frames, self.period, self.count = frames, period_s, count
         self._stop = threading.Event()
         self.th = threading.Thread(target=self._run, daemon=True)
         self.th.start()
 
     def _run(self):
+        if self.count is not None:
+            while not self._stop.is_set() and not self.pub.poll(50):
+                pass
+            if self._stop.is_set():
+                return
+            self.pub.recv()   # the subscription: from here on nothing is dropped
         k = 0
         n = self.frames[0].shape[0]
-        while not self._stop.is_set():
+        while not self._stop.is_set() and (self.count is None or k < self.count):
             seqs = np.full(n, k + 1, np.uint32)
             self.pub.send(pack_frame(k, seqs, self.frames[k % len(self.frames)]))
             k += 1
@@ -220,22 +229,27 @@ class _Follower:
 @pytest.mark.parametrize("frames", ["plane_wave", "random"])
 def test_follow_mat_and_plot(tmp_path, frames):
     """--follow re-renders until killed; --mat and --plot (Agg) re-written
-    each iteration. The feeder stops first, so the client rests in its
+    each iteration. The feeder publishes exactly ITERATIONS x 2 frames after
+    the client subscribed, so iteration ITERATIONS - 1 is the client's last:
+    once its line is out, the .npy is final, and a .mat written after it
+    (a later mtime) is that iteration's. The client then rests in its
     receive with the last iteration's files complete."""
+    iterations = 3
     pos = jgeo.ura_positions(3, 2, 0.5)
     data = (_plane_wave_frames(4, pos, UV0, seed=3) if frames == "plane_wave"
             else _rand_frames(4, 7, seed=3))
     out, mat, png = (str(tmp_path / n) for n in ("hm.npy", "hm.mat", "hm.png"))
-    feeder = _Feeder(data)
+    feeder = _Feeder(data, count=2 * iterations)
     client = _Follower(tmp_path, feeder.address, "--frames", "2", "--rows", "3", "--cols", "2",
                        "--grid", str(GRID), "-o", out, "--mat", mat, "--plot", png,
                        "--timeout-ms", "20000", env=dict(os.environ, MPLBACKEND="Agg"))
     try:
-        ok = client.wait_for(lambda: "[2] music spectrum" in client.text, 120)
+        last = f"[{iterations - 1}] music spectrum"
+        ok = client.wait_for(lambda: last in client.text, 120)
         feeder.stop()
         settled = client.wait_for(
-            lambda: (time.time() - client.last_line_at > 1.0 and os.path.exists(mat)
-                     and os.path.getmtime(mat) >= os.path.getmtime(out)), 30)
+            lambda: (os.path.exists(mat)
+                     and os.stat(mat).st_mtime_ns > os.stat(out).st_mtime_ns), 30)
         alive = client.proc.poll() is None
     finally:
         if feeder.th.is_alive():
