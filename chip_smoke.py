@@ -172,7 +172,28 @@ The generic path, ``FusedSpectral`` and the recompute pair at L = 32768
      depth 8: 21 / 21, phase 16's frame bars on the last 16 frames, 2 + 2
      four-step launches a block.
 
-Every phase prints one JSON line (phases 19 and 20 one a part); a failed
+The offline half of ``parallel/`` (one process a device, ranks of a
+``torch.distributed`` group):
+
+ 21. (a) a one-rank NCCL group in this process at N = 21, L = 8192,
+     T = 256: ``make_channel_sharded_align`` and
+     ``make_fused_time_sharded_align`` (fused), ``make_sharded_align``
+     (``torch.fft``) and ``make_auto_sharded_align`` (``pallas``, global
+     and ema), each held to the unsharded engine on the same bytes by
+     tests/test_parallel.py's bars (delay 1e-4 / 1e-3, mag 1e-5, aligned
+     1e-3, wire 1 LSB) with its launch counts (1 + 1 + 1 fused kernels,
+     2 + 2 four-step, no plain run), its ms over 7 runs in turns with
+     the unsharded call's and the host time of a call of each, and one
+     profiled call of the fused time-sharded runner and of the unsharded
+     engine; (b) ranks that share the card over gloo, as
+     child processes: ``align_offline --mesh 3 --fft-impl fused`` on a
+     21-channel capture npz (T = 64) against the unsharded app's npz, and
+     the fused time-sharded runner on a (2, 1) mesh (``chip_smoke.py
+     --parallel-rank``) against the unsharded engine, each rank's launch
+     counts 1 + 1 + 1; (b) prints the card's compute mode and does not run
+     in an exclusive one.
+
+Every phase prints one JSON line (phases 19, 20 and 21 one a part); a failed
 check raises, so the exit code is not 0. Before the last line it prints the
 ptxas report of every kernel (registers, stack, spills; the twenty-seven
 tensor-core instantiations, twelve measure, nine apply and six four-step
@@ -2353,7 +2374,324 @@ def phase_generic_l32768(dev, smi, cap19):
                  measure=worst("lag_max_abs_err"), apply=worst("y_max_abs_err")))
 
 
+# parallel/ (phase 21): tests/test_parallel.py's bars, the sharded runner
+# against the unsharded engine on the same bytes.
+PAR_T = 256                    # (a): the offline shapes of phase 3
+PAR_T_SHARED = 64              # (b): blocks of the capture the ranks share
+PAR_DELAY_ATOL = 1e-3          # samples, torch.fft path
+PAR_DELAY_ATOL_FUSED = 1e-4    # samples, fused and four-step paths
+PAR_MAG_ATOL = 1e-5
+PAR_ALIGNED_ATOL = 1e-3
+PAR_WIRE_LSB = 1
+PAR_RUNS = 7
+PAR_RANK_TIMEOUT_S = 240
+
+
+def hold_parallel(got, want, where, delay_atol):
+    """A sharded runner's outputs against the unsharded engine's on the same
+    bytes: ``got`` / ``want`` map a name (wire, wire_ref, delay, mag,
+    aligned) to a tensor; returns the largest differences."""
+    bars = dict(wire=PAR_WIRE_LSB, wire_ref=0, delay=delay_atol, mag=PAR_MAG_ATOL,
+                aligned=PAR_ALIGNED_ATOL)
+    wide = lambda x: x.to(torch.complex128 if x.is_complex() else torch.float64)
+    errs = {}
+    for name, g in got.items():
+        w = want[name]
+        if tuple(g.shape) != tuple(w.shape):
+            raise AssertionError(f"{where}: {name} shape {tuple(g.shape)}, want {tuple(w.shape)}")
+        d = (wide(g) - wide(w)).abs().max().item()
+        errs[f"{name}_max_abs_err"] = d
+        if not d <= bars[name]:
+            raise AssertionError(f"{where}: {name} differs by {d} (bar {bars[name]})")
+    return errs
+
+
+def timed_pair(sharded_fn, plain_fn, runs=PAR_RUNS):
+    """Median ms of ``sharded_fn`` and of ``plain_fn`` (the unsharded call)
+    over ``runs`` runs each, in turns, after a warm-up of each."""
+    sharded_fn()
+    plain_fn()
+    t_s, t_u = [], []
+    for i in range(runs):
+        for fn, out in ((sharded_fn, t_s), (plain_fn, t_u))[:: 1 if i % 2 else -1]:
+            out.append(cuda_ms(fn))
+    return statistics.median(t_s), statistics.median(t_u), t_s, t_u
+
+
+def host_ms_median(fn, runs=PAR_RUNS):
+    """Median host time (ms) for ``fn()`` to return, each call started on
+    an idle card: its enqueue cost, or more where it waits for the card."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def phase_parallel_one_rank(dev, smi):
+    """Phase 21 (a): parallel/ in a one-rank NCCL group in this process at
+    N = 21, L = 8192, T = 256: make_channel_sharded_align and
+    make_fused_time_sharded_align (fused), make_sharded_align (torch.fft)
+    and make_auto_sharded_align (pallas, global and ema), each held to the
+    unsharded engine on the same bytes, with its launch counts (1 + 1 + 1
+    fused kernels, 2 + 2 four-step, no plain run), its ms over 7 runs
+    beside the unsharded call's, and the host time of a call of each. The
+    group is destroyed at the end."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch.distributed as dist
+
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import get_fourstep_kernel
+    from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
+    from coherent_rtlsdr_tpu_torch.parallel import sharded
+    from coherent_rtlsdr_tpu_torch.parallel.distributed import init_multihost
+    from coherent_rtlsdr_tpu_torch.parallel.mesh import make_mesh
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig, align_offline
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    init_multihost(f"file://{tmp}/store", 1, 0)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"one rank with a card of its own took {backend}, want nccl")
+        mesh = make_mesh(1, 1)
+        _, _, cap = synth_raw(PAR_T, L, N_CH, seed=21, dev=dev)
+        sig, ref = cap.sig_u8, cap.ref_u8                              # [T, N, L, 2], [T, L, 2]
+        sig_f, ref_f = sig.reshape(PAR_T, N_CH, 2 * L), ref.reshape(PAR_T, 2 * L)
+        fused = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                               lag_method="phase_zoom")
+        xla = PipelineConfig(n_channels=N_CH, block_len=L)
+        generic = PipelineConfig(n_channels=N_CH, block_len=L, **GENERIC)
+        k = get_fused_kernels(2 * L, dev)
+        k4 = get_fourstep_kernel(2 * L, dev)
+        out = {}
+
+        def run_case(name, fn, plain, counter, want_counts, hold, delay_atol, profiled=False):
+            fn()
+            counter.reset_counts()
+            got = fn()
+            counts = counter.counts()
+            launched_only(counts, want_counts, f"parallel {name}")
+            errs = hold_parallel(*hold(got), f"parallel {name}", delay_atol)
+            ms_s, ms_u, runs_s, runs_u = timed_pair(fn, plain)
+            out[name] = dict(ms=ms_s, unsharded_ms=ms_u, overhead_ms=ms_s - ms_u,
+                             ms_runs=runs_s, unsharded_ms_runs=runs_u,
+                             host_ms=host_ms_median(fn), unsharded_host_ms=host_ms_median(plain),
+                             launches=counts, **errs)
+            if profiled:   # one call of each: device busy against the wall
+                out[name]["profile"] = {
+                    side: {k: v for k, v in device_profile(f).items() if k != "fused_kernel_ms"}
+                    for side, f in (("sharded", fn), ("unsharded", plain))}
+
+        one = dict(measure_ref_launches=1, measure_spec_launches=1, apply_spec_i8_launches=1)
+        res_f = align_offline(fused, sig_f, ref_f)
+        chan = sharded.make_channel_sharded_align(fused, mesh)
+        run_case("channel_fused", lambda: chan(sig_f, ref_f),
+                 lambda: align_offline(fused, sig_f, ref_f), k, one,
+                 lambda g: (dict(wire=g[0], delay=g[1], mag=g[2]),
+                            dict(wire=res_f.wire, delay=res_f.delay, mag=res_f.mag)),
+                 PAR_DELAY_ATOL_FUSED)
+        ftime = sharded.make_fused_time_sharded_align(fused, mesh)
+        run_case("fused_time", lambda: ftime(sig_f, ref_f),
+                 lambda: align_offline(fused, sig_f, ref_f), k, one,
+                 lambda g: (dict(wire=g[0][1:], wire_ref=g[1][1:], delay=g[2][1:], mag=g[3][1:]),
+                            dict(wire=res_f.wire, wire_ref=res_f.wire_ref, delay=res_f.delay,
+                                 mag=res_f.mag)),
+                 PAR_DELAY_ATOL_FUSED, profiled=True)
+        del res_f
+        res_x = align_offline(xla, sig, ref)
+        salign = sharded.make_sharded_align(xla, mesh)
+        run_case("sharded_align_xla", lambda: salign(sig, ref),
+                 lambda: align_offline(xla, sig, ref), k, {},
+                 lambda g: (dict(aligned=g[0][1:], delay=g[2][1:], mag=g[3][1:]),
+                            dict(aligned=res_x.aligned, delay=res_x.delay, mag=res_x.mag)),
+                 PAR_DELAY_ATOL)
+        del res_x
+        for smoothing in ("global", "ema"):
+            res_p = align_offline(generic, sig, ref, smoothing=smoothing)
+            auto = sharded.make_auto_sharded_align(generic, mesh, smoothing)
+            run_case(f"auto_pallas_{smoothing}", lambda: auto(sig, ref),
+                     lambda: align_offline(generic, sig, ref, smoothing=smoothing), k4,
+                     dict(fft_launches=2, ifft_launches=2),
+                     lambda g: (dict(aligned=g.aligned, delay=g.delay, mag=g.mag),
+                                dict(aligned=res_p.aligned, delay=res_p.delay, mag=res_p.mag)),
+                     PAR_DELAY_ATOL_FUSED)
+            del res_p
+        # This process's Python threads beside the times: another thread
+        # would compete for the interpreter lock, which each collective
+        # releases.
+        threads = [t.name for t in threading.enumerate()]
+        emit(dict(phase="parallel", part="one_rank", card=smi, backend=backend, N=N_CH, L=L,
+                  T=PAR_T, mesh=[1, 1], torch=torch.__version__, python_threads=threads,
+                  results=out))
+        return out
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def compute_mode():
+    """``nvidia-smi``'s compute mode of the first card."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def parallel_rank(out_dir, rank, world):
+    """One rank of phase 21 (b)'s time-sharded run (``chip_smoke.py
+    --parallel-rank DIR RANK WORLD``): the fused time-sharded runner on a
+    (WORLD, 1) mesh of ranks that share the card, on ``DIR/in.npz``; rank 0
+    writes the gathered outputs and every rank its launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
+    from coherent_rtlsdr_tpu_torch.parallel import sharded
+    from coherent_rtlsdr_tpu_torch.parallel.distributed import init_multihost
+    from coherent_rtlsdr_tpu_torch.parallel.mesh import gather_to_rank0, local_shard, make_mesh
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+
+    rank, world = int(rank), int(world)
+    init_multihost(f"file://{out_dir}/store", world, rank)
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        data = np.load(os.path.join(out_dir, "in.npz"))
+        sig = torch.from_numpy(data["sig"]).to(dev)
+        ref = torch.from_numpy(data["ref"]).to(dev)
+        T, N = sig.shape[:2]
+        cfg = PipelineConfig(n_channels=N, block_len=sig.shape[2] // 2, fft_impl="fused",
+                             lag_method="phase_zoom")
+        mesh = make_mesh(world, 1)
+        run = sharded.make_fused_time_sharded_align(cfg, mesh)
+        k = get_fused_kernels(sig.shape[2], dev)
+        k.reset_counts()
+        wire, wire_ref, delay, mag = run(local_shard(sig, mesh).contiguous(),
+                                         local_shard(ref, mesh, channel_dim=None).contiguous())
+        torch.cuda.synchronize()
+        with open(os.path.join(out_dir, f"counts_{rank}.json"), "w") as f:
+            json.dump(dict(backend=dist.get_backend(), device=str(dev), **k.counts()), f)
+        got = {name: gather_to_rank0(x, mesh, channel_dim=cd) for name, x, cd in (
+            ("wire", wire, 1), ("wire_ref", wire_ref, None), ("delay", delay, 1),
+            ("mag", mag, 1))}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "gathered.npz"),
+                     **{name: x.cpu().numpy() for name, x in got.items()})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_children(cmds, where, cwd):
+    """Run ``cmds`` as child processes at once, each within
+    PAR_RANK_TIMEOUT_S; raises with the output of any that failed."""
+    import subprocess
+
+    procs = [subprocess.Popen(c, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=PAR_RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    failed = [f"{c}: exit {p.returncode}\n{o[-4000:]}" for c, p, o in zip(cmds, procs, outs)
+              if p.returncode]
+    if failed:
+        raise AssertionError(f"{where}: " + "\n".join(failed))
+    return time.perf_counter() - t0, outs
+
+
+def phase_parallel_shared_card(dev, smi):
+    """Phase 21 (b): ranks that share the card, over gloo, as child
+    processes: ``align_offline --mesh 3 --fft-impl fused`` on a 21-channel
+    capture npz against the unsharded app's npz, and the fused time-sharded
+    runner on a (2, 1) mesh against the unsharded engine. Skipped, and
+    said so, when the card is in an exclusive compute mode."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.apps import align_offline as align_app
+    from coherent_rtlsdr_tpu_torch.io.streamio import Capture, save_capture
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig, align_offline
+
+    mode = compute_mode()
+    if "exclusive" in mode.lower():
+        emit(dict(phase="parallel", part="shared_card", card=smi, compute_mode=mode,
+                  ran=False, why="the card is in an exclusive compute mode: ranks cannot share it"))
+        return None
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shared_")
+    try:
+        T = PAR_T_SHARED
+        _, _, cap = synth_raw(T, L, N_CH, seed=22, dev=dev)
+        sig = cap.sig_u8.cpu().numpy()
+        ref = cap.ref_u8.cpu().numpy()
+        seq = np.broadcast_to(np.arange(T, dtype=np.uint32)[:, None], (T, N_CH + 1)).copy()
+        src = os.path.join(tmp, "capture.npz")
+        save_capture(src, Capture(sig_u8=sig, ref_u8=ref, seqnums=seq, fs=2.048e6,
+                                  fcenter=868e6))
+        app = [sys.executable, "-m", "coherent_rtlsdr_tpu_torch.apps.align_offline", src,
+               "--fft-impl", "fused"]
+        app_s, _ = run_children([app + ["--mesh", "3", "-o", os.path.join(tmp, "mesh.npz")]],
+                                "align_offline --mesh 3", root)
+        if align_app.main([src, "--fft-impl", "fused", "-o", os.path.join(tmp, "one.npz")]):
+            raise AssertionError("the unsharded align_offline app failed")
+        t_, o_ = (np.load(os.path.join(tmp, f)) for f in ("mesh.npz", "one.npz"))
+        if sorted(t_.files) != ["aligned_i8", "delay", "fs", "mag", "ref_i8"]:
+            raise AssertionError(f"align_offline --mesh 3 wrote {sorted(t_.files)}")
+        app_errs = hold_parallel(
+            {"wire": torch.from_numpy(t_["aligned_i8"]), "wire_ref": torch.from_numpy(t_["ref_i8"]),
+             "delay": torch.from_numpy(t_["delay"]), "mag": torch.from_numpy(t_["mag"])},
+            {"wire": torch.from_numpy(o_["aligned_i8"]), "wire_ref": torch.from_numpy(o_["ref_i8"]),
+             "delay": torch.from_numpy(o_["delay"]), "mag": torch.from_numpy(o_["mag"])},
+            "align_offline --mesh 3", PAR_DELAY_ATOL_FUSED)
+
+        np.savez(os.path.join(tmp, "in.npz"), sig=sig.reshape(T, N_CH, 2 * L),
+                 ref=ref.reshape(T, 2 * L))
+        ranks_s, _ = run_children(
+            [[sys.executable, os.path.abspath(__file__), "--parallel-rank", tmp, str(r), "2"]
+             for r in range(2)], "fused time-sharded (2, 1)", root)
+        counts = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"counts_{r}.json")) as f:
+                counts.append(json.load(f))
+        for r, c in enumerate(counts):
+            if c["backend"] != "gloo":
+                raise AssertionError(f"rank {r} of two sharing a card took {c['backend']}")
+            launched_only({n: v for n, v in c.items() if n not in ("backend", "device")},
+                          dict(measure_ref_launches=1, measure_spec_launches=1,
+                               apply_spec_i8_launches=1), f"time-sharded rank {r}")
+        g = np.load(os.path.join(tmp, "gathered.npz"))
+        fused = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                               lag_method="phase_zoom")
+        res = align_offline(fused, cap.sig_u8.reshape(T, N_CH, 2 * L),
+                            cap.ref_u8.reshape(T, 2 * L))
+        time_errs = hold_parallel(
+            {n: torch.from_numpy(g[n][1:]) for n in ("wire", "wire_ref", "delay", "mag")},
+            dict(wire=res.wire.cpu(), wire_ref=res.wire_ref.cpu(), delay=res.delay.cpu(),
+                 mag=res.mag.cpu()), "fused time-sharded (2, 1)", PAR_DELAY_ATOL_FUSED)
+        out = dict(compute_mode=mode, ran=True, N=N_CH, L=L, T=T,
+                   app_mesh3=dict(wall_s=app_s, **app_errs),
+                   time_sharded_2x1=dict(wall_s=ranks_s, launches=counts, **time_errs))
+        emit(dict(phase="parallel", part="shared_card", card=smi, **out))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2786,6 +3124,11 @@ def main():
     # L = 32768: rows 4-7 on their cluster kernels, and the generic server.
     p20 = phase_generic_l32768(dev, smi, cap19)
     del cap19
+
+    # 21. parallel/: the sharded runners in a one-rank NCCL group, then
+    # ranks that share the card over gloo, as child processes.
+    phase_parallel_one_rank(dev, smi)
+    phase_parallel_shared_card(dev, smi)
 
     # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15,
     # 16, 17 and 18 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the

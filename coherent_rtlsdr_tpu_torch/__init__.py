@@ -32,6 +32,8 @@ native     the C++ host runtime (block ring, file / ZMQ / librtlsdr capture
            threads, packetizer and publisher), built with g++ at first use
 models     array geometries, steering, covariance, DOA spectra, co-array
            and near-field localization
+parallel   the (time, channel) mesh of torch.distributed ranks and the
+           sharded offline runners and step
 apps       the server, the offline aligner, the capture daemon and the
            MUSIC heatmap client
 

@@ -20,7 +20,8 @@
 
 The ring and rtlsdr sources run on the native host library (``native.py``,
 built with g++ at first use). The pipeline runs on the card; ``--cpu`` runs
-it on the CPU. ``--mesh > 1`` raises: it comes with ``parallel/``.
+it on the CPU. ``--mesh > 1`` raises: serving on a mesh comes with the
+serving half of ``parallel/``.
 """
 
 import argparse
@@ -86,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the loop to DIR/trace.json")
     ap.add_argument("--mesh", type=int, default=1, metavar="SHARDS",
-                    help="channel shards over devices (not ported yet: parallel/)")
+                    help="channel shards over devices (not ported yet: the serving "
+                         "half of parallel/)")
     ap.add_argument("--max-channels", type=int, default=None,
                     help="pad the channel axis to this width so console add/del keep "
                          "the same runners")

@@ -21,8 +21,8 @@ the JAX package's npz layout).
 
 The publisher is the native C++ packetizer (``native.py``) where it
 builds and finds libzmq, else pyzmq's ``FramePublisher``. Not in this port
-yet: the channel-sharded mesh (``parallel/``); the constructor raises for
-it.
+yet: serving on a channel-sharded mesh (the serving half of ``parallel/``);
+the constructor raises for it.
 """
 
 import dataclasses
@@ -57,7 +57,8 @@ logger = logging.getLogger("coherent_rtlsdr_tpu_torch")
 # packed-telemetry column index map (pipeline/state.TELEMETRY_COLS order)
 _TCOL = {name: j for j, name in enumerate(TELEMETRY_COLS)}
 
-LATER_SLICE = "is not ported yet: it comes with parallel/ (ROADMAP.md, Queue 1)"
+LATER_SLICE = ("is not ported yet: it comes with the serving half of parallel/ "
+               "(ROADMAP.md, Queue 1 item 2)")
 
 
 class _LogRing(logging.Handler):

@@ -54,9 +54,10 @@ class OfflineResult:
         return i8_iq_to_c64(self.wire_ref.reshape(*self.wire_ref.shape[:-1], -1, 2))
 
 
-def _ema_scan(x: torch.Tensor, alpha: float, w: torch.Tensor) -> torch.Tensor:
+def _ema_scan(x: torch.Tensor, alpha: float, w: torch.Tensor,
+              y0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gated EMA along axis 0: y_t = (1 - a_t) y_{t-1} + a_t x_t with
-    a_t = alpha * w_t and y_{-1} = 0.
+    a_t = alpha * w_t and y_{-1} = ``y0`` (0 by default).
 
     The JAX package evaluates it as an associative scan; PyTorch has none,
     and the closed form through cumulative products underflows (1 - a_t is
@@ -66,24 +67,44 @@ def _ema_scan(x: torch.Tensor, alpha: float, w: torch.Tensor) -> torch.Tensor:
     a = alpha * w
     A = 1.0 - a
     B = a * x
-    ys = [B[0]]
-    for t in range(1, x.shape[0]):
-        ys.append(A[t] * ys[-1] + B[t])
-    return torch.stack(ys)
+    ys = []
+    y = y0
+    for t in range(x.shape[0]):
+        y = B[t] if y is None else A[t] * y + B[t]
+        ys.append(y)
+    return torch.stack(ys) if ys else B.clone()
+
+
+class TimeAxis:
+    """The window axis the smoothers reduce and scan along: here every
+    window of the capture in one tensor. ``parallel/sharded.py`` gives the
+    engine a subclass whose windows are split over the ranks of a process
+    group."""
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the capture's windows (axis 0)."""
+        return torch.sum(x, dim=0)
+
+    def ema(self, x: torch.Tensor, alpha: float, w: torch.Tensor) -> torch.Tensor:
+        """:func:`_ema_scan` over the capture's windows."""
+        return _ema_scan(x, alpha, w)
+
+
+WHOLE_CAPTURE = TimeAxis()
 
 
 def smooth_delays(cfg: PipelineConfig, lag: torch.Tensor, mag: torch.Tensor,
-                  smoothing: str) -> torch.Tensor:
+                  smoothing: str, time: TimeAxis = WHOLE_CAPTURE) -> torch.Tensor:
     """Phase B: raw lag measurements [T', N] -> applied advances [T', N]."""
     w = (mag >= cfg.min_corr_mag).to(torch.float32)
     if smoothing == "global":
         q = w * mag * mag
-        num = torch.sum(q * lag, dim=0)
-        den = torch.sum(q, dim=0)
+        num = time.sum(q * lag)
+        den = time.sum(q)
         d = num / torch.where(den > 0, den, 1.0)
         return d[None, :].expand(lag.shape)
     if smoothing == "ema":
-        return _ema_scan(lag, cfg.ctrl_gain, w)
+        return time.ema(lag, cfg.ctrl_gain, w)
     raise ValueError(f"unknown smoothing: {smoothing}")
 
 
@@ -95,7 +116,8 @@ def measure_blocks(cfg: PipelineConfig, sp, ctx):
 
 
 def apply_corrections(cfg: PipelineConfig, sp, ctx, w_ref: torch.Tensor, delay: torch.Tensor,
-                      mag: torch.Tensor, smoothing: str, phase_alpha: Optional[float] = None):
+                      mag: torch.Tensor, smoothing: str, phase_alpha: Optional[float] = None,
+                      time: TimeAxis = WHOLE_CAPTURE):
     """Phase C: fractional advance and phase correction, overlap-save
     centre. ``w_ref [T', 2L]`` are the time-domain reference windows.
     Returns (aligned [T', N, L], ref [T', L], phase factors [T', N])."""
@@ -103,25 +125,26 @@ def apply_corrections(cfg: PipelineConfig, sp, ctx, w_ref: torch.Tensor, delay: 
     out_raw = sp.correct(ctx, delay)                     # [T', N, L]
     out_ref = w_ref[..., L // 2: L // 2 + L]             # [T', L]
     pc_inst = phase_correction_estimate(out_raw, out_ref[:, None])
-    pc = _smooth_phases(cfg, pc_inst, mag, smoothing, phase_alpha)
+    pc = _smooth_phases(cfg, pc_inst, mag, smoothing, phase_alpha, time)
     return out_raw * pc[..., None], out_ref, pc
 
 
 def _smooth_phases(cfg: PipelineConfig, pc_inst: torch.Tensor, mag: torch.Tensor,
-                   smoothing: str, phase_alpha: Optional[float] = None) -> torch.Tensor:
+                   smoothing: str, phase_alpha: Optional[float] = None,
+                   time: TimeAxis = WHOLE_CAPTURE) -> torch.Tensor:
     """Quality-gated phase smoothing of instantaneous factors [T', N] c64."""
     wgt = (mag >= cfg.min_corr_mag).to(torch.float32)
     if smoothing == "global":
-        pc = unit_phasor(torch.sum(pc_inst * wgt, dim=0))
+        pc = unit_phasor(time.sum(pc_inst * wgt))
         return pc[None, :].expand(pc_inst.shape).to(torch.complex64)
     alpha = phase_alpha if phase_alpha is not None else cfg.phase_alpha
-    z = _ema_scan(pc_inst, alpha, wgt.to(torch.complex64))
+    z = time.ema(pc_inst, alpha, wgt.to(torch.complex64))
     zmag = torch.abs(z)
     return (z / torch.where(zmag > 0, zmag, 1.0)).to(torch.complex64)
 
 
 def _align_offline_fused_i8(cfg: PipelineConfig, sp: FusedSpectral, sig_u8: torch.Tensor,
-                            ref_u8: torch.Tensor, smoothing: str) -> OfflineResult:
+                            ref_u8: torch.Tensor, smoothing: str, time: TimeAxis) -> OfflineResult:
     """The i8-native engine: the u8 XOR is the only pass over the samples
     outside the two kernels. The phase estimate is arg(z) from the measure
     kernel, as in the streaming step."""
@@ -134,9 +157,9 @@ def _align_offline_fused_i8(cfg: PipelineConfig, sp: FusedSpectral, sig_u8: torc
 
     lag, zre, zim, mag, papr, dre, dim = k.measure_i8_spec(raw, ref_raw)
 
-    delay = smooth_delays(cfg, lag, mag, smoothing)
+    delay = smooth_delays(cfg, lag, mag, smoothing, time)
     delay = torch.clamp(delay, -cfg.max_delay, cfg.max_delay)
-    pc = _smooth_phases(cfg, unit_phasor(torch.complex(zre, -zim)), mag, smoothing)
+    pc = _smooth_phases(cfg, unit_phasor(torch.complex(zre, -zim)), mag, smoothing, time=time)
 
     wire = k.apply_spec_i8(dre, dim, delay.contiguous(),
                            pc.real.contiguous(), pc.imag.contiguous())
@@ -148,15 +171,18 @@ def _align_offline_fused_i8(cfg: PipelineConfig, sp: FusedSpectral, sig_u8: torc
 
 
 def align_offline(cfg: PipelineConfig, sig_u8: torch.Tensor, ref_u8: torch.Tensor,
-                  smoothing: str = "global") -> OfflineResult:
+                  smoothing: str = "global", time: TimeAxis = WHOLE_CAPTURE) -> OfflineResult:
     """Align a whole capture ``sig_u8 [T, N, L, 2]`` (or flat ``[T, N, 2L]``)
     against ``ref_u8 [T, L, 2]`` (or ``[T, 2L]``) on the device of the
     bytes. Returns T-1 output blocks (block 0 seeds the overlap-save
-    history, like the streaming step's first block)."""
+    history, like the streaming step's first block). ``time`` is the
+    smoothers' window axis: the default holds the whole capture; the
+    time-sharded runner of ``parallel/sharded.py`` passes the slab of one
+    rank with its reductions over the time group."""
     L = cfg.block_len
     sp = get_spectral(cfg, 2 * L, sig_u8.device)
     if isinstance(sp, FusedSpectral):
-        return _align_offline_fused_i8(cfg, sp, sig_u8, ref_u8, smoothing)
+        return _align_offline_fused_i8(cfg, sp, sig_u8, ref_u8, smoothing, time)
 
     T, N = sig_u8.shape[:2]
     sig = u8_to_c64(sig_u8.reshape(T, N, L, 2))   # [T, N, L]
@@ -165,7 +191,9 @@ def align_offline(cfg: PipelineConfig, sig_u8: torch.Tensor, ref_u8: torch.Tenso
     ctx = sp.prepare(sig, ref)
     del sig
     lag, mag, papr = measure_blocks(cfg, sp, ctx)
-    delay = torch.clamp(smooth_delays(cfg, lag, mag, smoothing), -cfg.max_delay, cfg.max_delay)
-    aligned, out_ref, pc = apply_corrections(cfg, sp, ctx, w_ref, delay, mag, smoothing)
+    delay = torch.clamp(smooth_delays(cfg, lag, mag, smoothing, time),
+                        -cfg.max_delay, cfg.max_delay)
+    aligned, out_ref, pc = apply_corrections(cfg, sp, ctx, w_ref, delay, mag, smoothing,
+                                             time=time)
     return OfflineResult(lag=lag, delay=delay, mag=mag, papr=papr, phase=pc,
                          aligned_c64=aligned, ref_c64=out_ref)

@@ -224,8 +224,15 @@ def test_align_offline_app_matches_jax(tmp_path, monkeypatch, capsys, impl, smoo
 
 
 def test_align_offline_app_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        align_app.main(["--synth", "2", "--mesh", "2", "--cpu", "-o", str(tmp_path / "x.npz")])
+    """The JAX app's ``--mesh`` errors: smoothing other than global (before
+    any rank starts), and a mesh that does not divide the channels (each
+    rank's argument error, exit code 2)."""
+    with pytest.raises(SystemExit):
+        align_app.main(["--synth", "2", "--mesh", "2", "--smoothing", "ema", "--cpu",
+                        "-o", str(tmp_path / "x.npz")])
+    assert align_app.main(["--synth", "3", "--blocks", "4", "--block-len", "1024", "--mesh", "2",
+                           "--cpu", "-o", str(tmp_path / "x.npz")]) == 2
+    assert not (tmp_path / "x.npz").exists()
     with pytest.raises(SystemExit):
         align_app.main(["--cpu", "-o", str(tmp_path / "x.npz")])
     if not torch.cuda.is_available():
