@@ -193,7 +193,28 @@ The offline half of ``parallel/`` (one process a device, ranks of a
      counts 1 + 1 + 1; (b) prints the card's compute mode and does not run
      in an exclusive one.
 
-Every phase prints one JSON line (phases 19, 20 and 21 one a part); a failed
+The streaming server on a channel mesh (the serving half of ``parallel/``:
+rank 0 runs ``CoherentServer(mesh=...)``, the other ranks
+``serve_follower``):
+
+ 22. (a) a one-rank NCCL group in this process: the fused server on
+     ``make_mesh(1, 1)`` and the unsharded server on phase 16's capture at
+     scan depth 1 and 32, in turns: every frame byte-equal to the
+     unsharded server's (the first 64 to the packed runner's), 21 / 21,
+     phase 16's frame bars, one launch of each fused kernel a block and no
+     plain run; samples/s (median of 3 windows each, depth 32 against
+     43.0e6), the host ms a block by part, the mesh's header, scatter and
+     gather among them, and at depth 1 the host operators under
+     torch.profiler and the host ms of a runner call alone; then the ``pallas`` server on the mesh, 64
+     blocks at depth 8, byte-equal to the unsharded one, 2 + 2 four-step
+     launches a block; (b) ``coherent_server --mesh 3`` (three gloo ranks
+     sharing the card, started by the app) on phase 21 (b)'s capture at
+     depth 32, publishing through pyzmq to a SUB socket here: the last 16
+     frames by phase 16's bars, its checkpoint 21 / 21 synced with delays
+     within 1e-3 of the unsharded server's; (b) prints the compute mode
+     and does not run in an exclusive one.
+
+Every phase prints one JSON line (phases 19-22 one a part); a failed
 check raises, so the exit code is not 0. Before the last line it prints the
 ptxas report of every kernel (registers, stack, spills; the twenty-seven
 tensor-core instantiations, twelve measure, nine apply and six four-step
@@ -204,6 +225,10 @@ bound from ``tools/cost_model.py``: the larger of bytes over 3.35 TB/s and
 bf16 operations over 989 TFLOP/s); the last line is ``{"ok": true,
 "device": {...}}``. Needs a CUDA device and the repository's package next
 to this file.
+
+``python3 chip_smoke.py --phase 22`` builds the kernels and runs phase 22
+alone on phase 16's capture (its JSON lines only, no summary and no last
+line): the quick way to time the mesh server against the unsharded one.
 """
 
 import json
@@ -864,6 +889,15 @@ def host_breakdown(srv, n_blocks):
       worker_publish  ``CoherentServer._publish_batch`` less its fetch
                       (frame assembly and publish)
 
+    On a mesh server, three parts of dispatch besides:
+
+      dispatch_mesh_header   ``ShardedServerRunners._post`` (the control
+                             header's gloo broadcast, posted without a wait)
+      dispatch_mesh_scatter  its ``_scatter_blocks`` (the blocks packed and
+                             scattered)
+      dispatch_mesh_gather   its ``_gather_outputs`` (the outputs packed and
+                             gathered)
+
     ``longest_call_ms``: each wrapped function's longest single call, which
     tells a steady cost from a few stalls.
     """
@@ -888,6 +922,10 @@ def host_breakdown(srv, n_blocks):
              ("publish", srv, "_publish_batch")]
     if srv._scan is not None:
         parts.append(("dispatch", srv, "_scan"))
+    shards = getattr(srv, "_shards", None)
+    if shards is not None:
+        parts += [("mesh_header", shards, "_post"), ("mesh_scatter", shards, "_scatter_blocks"),
+                  ("mesh_gather", shards, "_gather_outputs")]
     # (object, attribute, the instance's own value or None for a method of
     # the class, which deleting the wrapper brings back)
     saved = [(obj, attr, vars(obj).get(attr)) for _, obj, attr in parts]
@@ -906,8 +944,12 @@ def host_breakdown(srv, n_blocks):
                 setattr(obj, attr, own)
     ms = lambda sec: sec * 1e3 / n
     main = spent["source"] + spent["stage"] + spent["dispatch"]
+    mesh = ({} if shards is None else
+            dict(dispatch_mesh_header=ms(spent["mesh_header"]),
+                 dispatch_mesh_scatter=ms(spent["mesh_scatter"]),
+                 dispatch_mesh_gather=ms(spent["mesh_gather"])))
     return dict(blocks=n, wall_ms_per_block=ms(wall), source=ms(spent["source"]),
-                stage=ms(spent["stage"]), dispatch=ms(spent["dispatch"]),
+                stage=ms(spent["stage"]), dispatch=ms(spent["dispatch"]), **mesh,
                 main_rest=ms(wall - main), worker_fetch=ms(spent["fetch"]),
                 worker_publish=ms(spent["publish"] - spent["fetch"]),
                 longest_call_ms={name: v * 1e3 for name, v in longest.items()})
@@ -2689,6 +2731,356 @@ def phase_parallel_shared_card(dev, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 22: the streaming server on a channel mesh (parallel/, serving).
+RUNNER_ROUNDS = 16             # (a): runner calls alone, in turns
+RUNNER_CALLS = 8               # calls a round (~90 launches each: the queue does not fill)
+MESH_GENERIC_BLOCKS = 64       # the pallas mesh server, correctness only
+MESH_GENERIC_DEPTH = 8
+MESH_SHARED_RANKS = 3          # (b): ranks that share the card
+MESH_SHARED_DELAY_ATOL = 1e-3  # (b): the checkpoint's delays against the unsharded server's
+
+
+class DigestPublisher(RecordingPublisher):
+    """A ``RecordingPublisher`` that also keeps a digest of every serialized
+    frame, so two servers' whole streams compare byte for byte."""
+
+    def __init__(self, keep_first=0):
+        super().__init__(keep_first)
+        self.digests = []
+
+    def publish(self, iq_i8, seqnums, phases=None):
+        import hashlib
+
+        n = super().publish(iq_i8, seqnums, phases)
+        self.digests.append(hashlib.blake2b(self.last[-1], digest_size=16).digest())
+        return n
+
+
+def op_breakdown(srv, n_blocks, top=16):
+    """One more run of ``srv`` under torch.profiler (host activity only):
+    the ``top`` operators by their own host time, each with its calls and
+    its own and total host ms a block, on every thread of the process (the
+    publisher worker's too). The profiler's own cost inflates each call, so
+    these are shares, not times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        n = srv.run(max_blocks=n_blocks)
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    return dict(blocks=n, ops={e.key: dict(calls_per_block=e.count / n,
+                                           self_ms_per_block=e.self_cpu_time_total / 1e3 / n,
+                                           total_ms_per_block=e.cpu_time_total / 1e3 / n)
+                               for e in rows})
+
+
+def runner_call_ms(srvs, cap, rounds=RUNNER_ROUNDS, calls=RUNNER_CALLS):
+    """The host ms of one depth-1 runner call (``srv._step``) of each
+    server of ``srvs`` (a dict), alone: no loop and no publisher thread.
+    In turns, ``rounds`` times: ``calls`` calls on one staged block of the
+    capture, timed to the host's return from the last (few enough that the
+    launch queue does not fill, so the card's time stays out), then a
+    synchronize; the ms a call of each round. Each call's new state is
+    dropped, so every server goes on as it was."""
+    blk = [(cap.sig_u8[0], cap.ref_u8[0], cap.seqnums[0])]
+    out = {side: [] for side in srvs}
+    for i in range(rounds):
+        for side in list(srvs)[:: 1 if i % 2 == 0 else -1]:
+            srv = srvs[side]
+            sig, ref, seq = srv._stage(blk)
+            gate = True if srv._shards is not None else torch.tensor(True, device=srv.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                srv._step(srv._st, sig[0], ref[0], gate, seq[0])
+            out[side].append((time.perf_counter() - t0) * 1e3 / calls)
+            torch.cuda.synchronize()
+    return {side: dict(ms_per_call=v, median=statistics.median(v)) for side, v in out.items()}
+
+
+def same_stream(a, b, where):
+    """Two DigestPublishers saw the same frames, byte for byte."""
+    if len(a.digests) != len(b.digests) or a.digests != b.digests:
+        first = next((i for i, (x, y) in enumerate(zip(a.digests, b.digests)) if x != y), None)
+        raise AssertionError(f"{where}: {len(a.digests)} against {len(b.digests)} frames, "
+                             f"first differing frame {first}")
+    return len(a.digests)
+
+
+def save_shared_capture(directory, dev):
+    """Phase 21 (b)'s 21-channel capture (PAR_T_SHARED blocks, seed 22) as
+    an npz in ``directory`` with the seqnums a server's ``FileSource``
+    reads (a column a signal channel, from 1): (path, capture)."""
+    import numpy as np
+
+    from coherent_rtlsdr_tpu_torch.io.streamio import Capture, save_capture
+
+    T = PAR_T_SHARED
+    _, _, cap = synth_raw(T, L, N_CH, seed=22, dev=dev)
+    seq = np.tile(np.arange(1, T + 1, dtype=np.uint32)[:, None], (1, N_CH))
+    path = os.path.join(directory, "capture.npz")
+    save_capture(path, Capture(sig_u8=cap.sig_u8.cpu().numpy(), ref_u8=cap.ref_u8.cpu().numpy(),
+                               seqnums=seq, fs=2.048e6, fcenter=868e6))
+    return path, cap
+
+
+def phase_mesh_server(dev, smi, k, fk, cap, want):
+    """Phase 22 (a): ``CoherentServer(mesh=make_mesh(1, 1))`` in a one-rank
+    NCCL group in this process, on phase 16's capture, fused at scan depth
+    1 and 32 in turns with the unsharded server: every frame byte-equal to
+    the unsharded server's (and the first 64 to the packed runner's),
+    21 / 21, phase 16's frame bars, one launch of each fused kernel a
+    block and no plain run; samples/s as the median of 3 windows each, in
+    turns, and the host ms a block by part of one more window each (depth
+    32 must keep real time), and at depth 1 the host operators of one more
+    window each under torch.profiler and the host ms of a runner call with
+    no loop around it; then the ``pallas`` server on the mesh, 64
+    blocks at depth 8, against the unsharded one, 2 + 2 four-step launches
+    a block. Returns (the fused launches, the four-step launches)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.parallel.distributed import init_multihost
+    from coherent_rtlsdr_tpu_torch.parallel.mesh import make_mesh
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.signal.sources import FileSource
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    init_multihost(f"file://{tmp}/store", 1, 0)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"one rank with a card of its own took {backend}, want nccl")
+        mesh = make_mesh(1, 1)
+        cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                             lag_method="phase_zoom")
+        launches = dict.fromkeys(k.counts(), 0)
+        out = dict(phase="mesh_server", part="one_rank", card=smi, backend=backend, N=N_CH, L=L,
+                   mesh=[1, 1], fft_impl="fused")
+        sides = ("unsharded", "mesh")
+        for depth in (1, 32):
+            where = f"mesh server K={depth}"
+            srv, pub = {}, {}
+            for side in sides:
+                pub[side] = DigestPublisher(keep_first=SERVER_WARM)
+                srv[side] = CoherentServer(cfg, FileSource(cap), publisher=pub[side],
+                                           control=QueueControl(), scan_depth=depth,
+                                           mesh=mesh if side == "mesh" else None, device=dev)
+            tally = {side: dict.fromkeys(k.counts(), 0) for side in sides}
+
+            def counted(side, fn):
+                k.reset_counts()
+                result = fn()
+                for name, v in k.counts().items():
+                    tally[side][name] += v
+                return result
+
+            for side in sides:
+                counted(side, lambda: srv[side].run(max_blocks=SERVER_WARM))
+            windows = {side: [] for side in sides}
+            for i in range(SERVER_WINDOWS):
+                for side in sides[:: 1 if i % 2 == 0 else -1]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    n = counted(side, lambda: srv[side].run(max_blocks=SERVER_WINDOW[depth]))
+                    windows[side].append((time.perf_counter() - t0, n))
+            host = {side: counted(side, lambda: host_breakdown(srv[side], SERVER_WINDOW[depth]))
+                    for side in sides}
+            ops = calls = None
+            if depth == 1:
+                ops = {side: counted(side, lambda: op_breakdown(srv[side], SERVER_WINDOW[depth]))
+                       for side in sides}
+                calls = runner_call_ms(srv, cap)   # launches outside ``counted``: not tallied
+            rec = {}
+            for side in sides:
+                served = len(pub[side].ref_seqs)
+                launched_only_kernels(tally[side], served, f"{where} ({side})")
+                contiguous(pub[side].ref_seqs, 1, f"{where} ({side})")
+                rates = [n * N_CH * L / sec for sec, n in windows[side]]
+                rec[side] = dict(window_s=[sec for sec, _ in windows[side]],
+                                 samples_per_s=rates,
+                                 samples_per_s_median=statistics.median(rates),
+                                 realtime=statistics.median(rates) >= REALTIME_SAMPLES_S,
+                                 host_ms_per_block=host[side], blocks_served=served,
+                                 **({} if ops is None else dict(host_ops=ops[side],
+                                                                runner_call=calls[side])),
+                                 launches=tally[side],
+                                 status=synced_line(srv[side], N_CH, f"{where} ({side})"),
+                                 frames=check_frames(pub[side].last, N_CH, f"{where} ({side})"))
+                for name, v in tally[side].items():
+                    launches[name] += v
+            rec["mesh"]["bit_equal_to_runner"] = bit_equal(pub["mesh"].first, want, where)
+            rec["mesh"]["bit_equal_to_unsharded"] = same_stream(pub["mesh"], pub["unsharded"],
+                                                                where)
+            srv["mesh"].close()
+            if depth == 32 and not rec["mesh"]["realtime"]:
+                raise AssertionError(f"{where}: {rec['mesh']['samples_per_s_median']} samples/s, "
+                                     f"under real time ({REALTIME_SAMPLES_S})")
+            out[f"scan_depth_{depth}"] = rec
+
+        # The generic server (pallas) on the mesh, against the unsharded one.
+        gcfg = PipelineConfig(n_channels=N_CH, block_len=L, **GENERIC)
+        four = dict(fft_launches=0, ifft_launches=0)
+        gpub = {}
+        for side in sides:
+            gpub[side] = DigestPublisher()
+            gsrv = CoherentServer(gcfg, FileSource(sub_capture(cap, 0, MESH_GENERIC_BLOCKS)),
+                                  publisher=gpub[side], control=QueueControl(),
+                                  scan_depth=MESH_GENERIC_DEPTH,
+                                  mesh=mesh if side == "mesh" else None, device=dev)
+            fk.reset_counts()
+            k.reset_counts()
+            n = gsrv.run()
+            counts = fk.counts()
+            launched_only(counts, dict(fft_launches=2 * n, ifft_launches=2 * n),
+                          f"generic mesh server ({side})")
+            launched_only(k.counts(), {}, f"generic mesh server ({side}, fused kernels)")
+            for name in four:
+                four[name] += counts[name]
+            if side == "mesh":
+                out["generic"] = dict(**GENERIC, scan_depth=MESH_GENERIC_DEPTH, blocks_served=n,
+                                      launches=counts,
+                                      status=synced_line(gsrv, N_CH, "generic mesh server"),
+                                      frames=check_frames(gpub[side].last, N_CH,
+                                                          "generic mesh server"))
+                gsrv.close()
+        out["generic"]["bit_equal_to_unsharded"] = same_stream(gpub["mesh"], gpub["unsharded"],
+                                                               "generic mesh server")
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+        return launches, four
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mesh_server_shared_card(dev, smi):
+    """Phase 22 (b): ``coherent_server --mesh 3`` (three gloo ranks on the
+    card, started by the app) on phase 21 (b)'s capture at scan depth 32,
+    publishing through pyzmq to a SUB socket here: the last 16 frames by
+    phase 16's bars, and its checkpoint 21 / 21 synced with delays within
+    1e-3 of the unsharded server's on the same capture. Skipped, and said
+    so, when the card is in an exclusive compute mode."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import zmq
+
+    from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
+    from coherent_rtlsdr_tpu_torch.io.streamio import load_capture
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.signal.sources import FileSource
+
+    t_phase = time.perf_counter()
+    mode = compute_mode()
+    base = dict(phase="mesh_server", part="shared_card", card=smi, compute_mode=mode)
+    if "exclusive" in mode.lower():
+        emit(dict(base, ran=False,
+                  why="the card is in an exclusive compute mode: ranks cannot share it"))
+        return
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_shared_")
+    ctx = zmq.Context()
+    sub = ctx.socket(zmq.SUB)
+    try:
+        src, _ = save_shared_capture(tmp, dev)
+        state = os.path.join(tmp, "calibration.npz")
+        data = f"tcp://127.0.0.1:{free_tcp_port()}"
+        sub.setsockopt(zmq.SUBSCRIBE, b"")
+        sub.setsockopt(zmq.RCVTIMEO, 200)
+        sub.connect(data)
+        cmd = [sys.executable, "-m", "coherent_rtlsdr_tpu_torch.apps.coherent_server",
+               "--fft-impl", "fused", "-n", str(N_CH), "-b", str(L), "--source", "file",
+               "--capture", src, "--scan-depth", "32", "--state", state,
+               "--mesh", str(MESH_SHARED_RANKS), "-A", data,
+               "--ctrl-address", f"tcp://127.0.0.1:{free_tcp_port()}",
+               "--debug-address", f"tcp://127.0.0.1:{free_tcp_port()}"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        frames = []
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < PAR_RANK_TIMEOUT_S:
+                try:
+                    frames.append(sub.recv())
+                except zmq.Again:
+                    pass
+            while True:   # what is still queued after the app left
+                try:
+                    frames.append(sub.recv())
+                except zmq.Again:
+                    break
+            stdout = proc.communicate(timeout=30)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"coherent_server --mesh {MESH_SHARED_RANKS}: exit "
+                                 f"{proc.returncode}\n{stdout[-4000:]}")
+        followers = [line for line in stdout.splitlines() if line.startswith("rank ")]
+        if not (f"published {PAR_T_SHARED} frames" in stdout
+                and len(followers) == MESH_SHARED_RANKS - 1 and len(frames) >= 16):
+            raise AssertionError(f"coherent_server --mesh {MESH_SHARED_RANKS}: {len(frames)} "
+                                 f"frames received; stdout {stdout[-3000:]}")
+        bars = check_frames(frames[-16:], N_CH, "mesh app frames")
+        saved = np.load(state)
+        # The unsharded server on the same capture.
+        cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                             lag_method="phase_zoom")
+        one = CoherentServer(cfg, FileSource(load_capture(src)), publisher=RecordingPublisher(),
+                             control=QueueControl(), scan_depth=32, device=dev)
+        one.run()
+        delay_err = float(np.abs(saved["delay"] - one.state.delay).max())
+        synced = int(saved["synced"].sum())
+        if not (synced == N_CH and delay_err <= MESH_SHARED_DELAY_ATOL):
+            raise AssertionError(f"mesh app checkpoint: {synced} / {N_CH} synced, delays "
+                                 f"{delay_err} off the unsharded server's")
+        banner = next(line for line in stdout.splitlines() if "channel shards" in line)
+        emit(dict(base, ran=True, ranks=MESH_SHARED_RANKS, N=N_CH, L=L, T=PAR_T_SHARED,
+                  scan_depth=32, wall_s=wall, banner=banner, followers=followers,
+                  frames_received=len(frames), frames=bars,
+                  checkpoint=dict(synced=f"{synced} / {N_CH}",
+                                  max_abs_delay_vs_unsharded=delay_err),
+                  seconds=time.perf_counter() - t_phase))
+    finally:
+        sub.close(0)
+        ctx.term()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main_phase_22(dev):
+    """Phase 22 alone: the kernels built, phase 16's capture rendered and
+    its first frames from the packed runner, then (a) and (b)."""
+    from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+    from coherent_rtlsdr_tpu_torch.kernels.fourstep import get_fourstep_kernel
+    from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
+    from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig
+    from coherent_rtlsdr_tpu_torch.tools.probe_roofline import smi_line
+
+    smi = smi_line()
+    report = fused_cuda.build()
+    emit(dict(phase="device_and_build", card=smi, torch=torch.__version__,
+              cuda=torch.version.cuda, nvcc_build_s=report["seconds"]))
+    k = get_fused_kernels(2 * L, dev)
+    fk = get_fourstep_kernel(2 * L, dev)
+    cfg = PipelineConfig(n_channels=N_CH, block_len=L, fft_impl="fused",
+                         lag_method="phase_zoom")
+    cap, _ = render_capture(2 * SERVER_WARM + (SERVER_WINDOWS + 1) * SERVER_WINDOW[32] + 8, dev)
+    want = runner_frames(cfg, cap, SERVER_WARM, dev)
+    phase_mesh_server(dev, smi, k, fk, cap, want)
+    phase_mesh_server_shared_card(dev, smi)
+    return 0
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(*sys.argv[2:5])
@@ -2696,6 +3088,8 @@ def main():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--phase", "22"]:
+        return main_phase_22(torch.device("cuda", 0))
     from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
     from coherent_rtlsdr_tpu_torch.kernels.fused import get_fused_kernels
     from coherent_rtlsdr_tpu_torch.pipeline import (
@@ -3107,13 +3501,11 @@ def main():
     # file / ZMQ / librtlsdr producers, native publisher) feeding the fused
     # server.
     counts_ring = phase_ring_server(dev, smi, k, cap16, want16)
-    del want16
 
     # 18. The array models at the production array, and the MUSIC client
     # app on the card fed by the fused server over ZMQ.
     rec18 = phase_models(dev)
     rec18_client, counts_music = phase_music_client(dev, k, cap16)
-    del cap16
     emit(dict(phase="models", card=smi, models=rec18, music_client=rec18_client))
 
     # 19. The fused main path at L = 32768 (m = 256): the four cluster
@@ -3130,8 +3522,15 @@ def main():
     phase_parallel_one_rank(dev, smi)
     phase_parallel_shared_card(dev, smi)
 
+    # 22. The streaming server on a channel mesh: a one-rank NCCL group on
+    # phase 16's capture beside the unsharded server, then the app's three
+    # gloo ranks sharing the card.
+    counts_mesh, four_mesh = phase_mesh_server(dev, smi, k, fk, cap16, want16)
+    del cap16, want16
+    phase_mesh_server_shared_card(dev, smi)
+
     # The kernels line. launches: the main path's runs (phases 3, 5, 14, 15,
-    # 16, 17 and 18 for the i8 kernels; 9, 11, 12 and 16 for the four-step; 12 for the
+    # 16, 17, 18 and 22 for the i8 kernels; 9, 11, 12, 16 and 22 for the four-step; 12 for the
     # float kernels; 15 for the copy). max_abs_err: the largest
     # kernel-vs-plain difference seen (R for the reference kernel, lag in
     # samples for the i8 measure kernels, wire LSB for the i8 applies,
@@ -3147,7 +3546,8 @@ def main():
     # the offline shapes; ms, plain_ms, library_ms and device_ms from (e),
     # the four-step at B = 1,323).
     launches = {c: counts_offline[c] + counts_stream[c] + counts_rec[c] + counts_probe[c]
-                + counts_server[c] + counts_ring[c] + counts_music[c] for c in counts_offline}
+                + counts_server[c] + counts_ring[c] + counts_music[c] + counts_mesh[c]
+                for c in counts_offline}
     worst = lambda key: max(errs_step[key], errs6[key])
     m = round((2 * L) ** 0.5)
     shape = (T_OFFLINE, N_CH, m)
@@ -3163,7 +3563,8 @@ def main():
     fourstep_launches = (counts_goff["fft_launches"] + counts_goff["ifft_launches"]
                          + counts_gstream["fft_launches"] + counts_gstream["ifft_launches"]
                          + counts_fsp["fft_launches"] + counts_gserver["fft_launches"]
-                         + counts_gserver["ifft_launches"])
+                         + counts_gserver["ifft_launches"] + four_mesh["fft_launches"]
+                         + four_mesh["ifft_launches"])
     # Registers, stack and spills of every kernel; the twenty-seven
     # tensor-core instantiations (measure, apply, four-step) must use no
     # stack and spill nothing.

@@ -26,11 +26,7 @@ they share one; ``--cpu`` ranks over gloo.
 
 import argparse
 import os
-import subprocess
 import sys
-import tempfile
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,36 +52,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="spectral backend; 'fused' = the i8 measure/apply kernels")
     ap.add_argument("--cpu", action="store_true", help="run the engine on the CPU")
     return ap
-
-
-def _spawn_ranks(n_ranks: int, argv) -> int:
-    """Run this command in ``n_ranks`` child processes, ranks 0 .. n-1 of
-    one process group joined through a file store; returns the first
-    failing rank's exit code (the others are stopped), else 0."""
-    root = str(Path(__file__).resolve().parents[2])
-    with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, COORDINATOR_ADDRESS=f"file://{tmp}/store",
-                   NUM_PROCESSES=str(n_ranks), LOCAL_WORLD_SIZE=str(n_ranks),
-                   PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
-        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n_ranks)))
-        procs = [subprocess.Popen([sys.executable, "-m", MODULE, *argv],
-                                  env=dict(env, PROCESS_ID=str(r), LOCAL_RANK=str(r)))
-                 for r in range(n_ranks)]
-        try:
-            while procs:
-                for p in list(procs):
-                    rc = p.poll()
-                    if rc is None:
-                        continue
-                    procs.remove(p)
-                    if rc:
-                        return rc
-                time.sleep(0.05)
-            return 0
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
 
 
 def _load(args, device):
@@ -155,7 +121,9 @@ def main(argv=None) -> int:
             ap.error("--mesh supports --smoothing global only (the channel-sharded engine "
                      "smooths globally per slab)")
         if not any(v in os.environ for v in ("COORDINATOR_ADDRESS", "MASTER_ADDR")):
-            return _spawn_ranks(args.mesh, argv)
+            from coherent_rtlsdr_tpu_torch.parallel.distributed import spawn_ranks
+
+            return spawn_ranks(MODULE, args.mesh, argv)
 
     from coherent_rtlsdr_tpu_torch.ops.convert import c64_to_i8_iq
     from coherent_rtlsdr_tpu_torch.pipeline import PipelineConfig, align_offline

@@ -16,12 +16,23 @@
   --source synth|file|ring|rtlsdr  --capture <npz>  --ingest <spec>
   --ring-slots <n>  --serials  --rtl-lib  --agc  --hw-drift-relief <samples>
   --blocks <n>  --state <npz>  --drop-rate <p>  --seed <n>  --trace DIR
-  --scan-depth  --max-channels  --interactive  --cpu
+  --scan-depth  --max-channels  --interactive  --cpu  --mesh <S>
 
 The ring and rtlsdr sources run on the native host library (``native.py``,
 built with g++ at first use). The pipeline runs on the card; ``--cpu`` runs
-it on the CPU. ``--mesh > 1`` raises: serving on a mesh comes with the
-serving half of ``parallel/``.
+it on the CPU.
+
+``--mesh S`` shards the channels over S ranks of a ``torch.distributed``
+group (``parallel/sharded.py:make_sharded_server_runners``; S must divide
+the channel count, or ``--max-channels``). Rank 0 runs the server: it alone
+opens the source, binds the sockets and writes the checkpoint; the other
+ranks compute their channels until it leaves its loop. Run alone, the app
+starts its S ranks itself, joined through a file in a temporary directory,
+and passes SIGINT / SIGTERM on to rank 0; under torchrun
+(``torchrun --nproc-per-node S -m coherent_rtlsdr_tpu_torch.apps.coherent_server
+... --mesh S``) the ranks are torchrun's. Ranks on the card talk over NCCL
+when each has a card of its own and over gloo when they share one;
+``--cpu`` ranks over gloo.
 """
 
 import argparse
@@ -29,8 +40,9 @@ import contextlib
 import dataclasses
 import os
 import signal
+import sys
 
-from coherent_rtlsdr_tpu_torch.io.server import LATER_SLICE
+MODULE = "coherent_rtlsdr_tpu_torch.apps.coherent_server"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,8 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the loop to DIR/trace.json")
     ap.add_argument("--mesh", type=int, default=1, metavar="SHARDS",
-                    help="channel shards over devices (not ported yet: the serving "
-                         "half of parallel/)")
+                    help="shard the channel axis over this many ranks, one a device "
+                         "(the channel count, or --max-channels, must divide evenly)")
     ap.add_argument("--max-channels", type=int, default=None,
                     help="pad the channel axis to this width so console add/del keep "
                          "the same runners")
@@ -155,13 +167,64 @@ def _ring_source(ap, args, n):
     return RingSource(ring, n_channels=n, block_len=args.blocksize), producer
 
 
+def _join_mesh(ap, args):
+    """This rank's (1, S) channel mesh over the process group."""
+    import torch.distributed as dist
+
+    from coherent_rtlsdr_tpu_torch.parallel.distributed import init_multihost
+    from coherent_rtlsdr_tpu_torch.parallel.mesh import make_mesh
+
+    init_multihost(device_type="cpu" if args.cpu else "cuda")
+    if dist.get_world_size() != args.mesh:
+        ap.error(f"--mesh {args.mesh} needs a world of {args.mesh} ranks, "
+                 f"got {dist.get_world_size()}")
+    return make_mesh(1, args.mesh)
+
+
+def _follow(args, mesh) -> int:
+    """A rank other than 0: its channels of every block until rank 0 posts
+    EXIT. Signals are rank 0's to act on."""
+    import torch.distributed as dist
+
+    from coherent_rtlsdr_tpu_torch.parallel.sharded import serve_follower
+
+    for s in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(s, signal.SIG_IGN)
+    rank = dist.get_rank()
+    try:
+        shard = serve_follower(mesh, "cpu" if args.cpu else "cuda")
+    finally:
+        dist.destroy_process_group()
+    # one write of the whole line: the ranks share the parent's stdout
+    sys.stdout.write(f"rank {rank}: {shard.blocks_served} blocks of "
+                     f"{shard.local_cfg.n_channels} channels, {shard.n_runner_builds} runner "
+                     "builds\n")
+    sys.stdout.flush()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(f"--mesh {LATER_SLICE}")
     if args.hw_drift_relief is not None and args.source != "rtlsdr":
         ap.error("--hw-drift-relief requires --source rtlsdr")
+    mesh = None
+    if args.mesh > 1:
+        # The width the ranks split; a config file's or the dongles' count
+        # is known to rank 0 alone, which checks it.
+        width = args.max_channels or (None if args.config or args.source == "rtlsdr"
+                                      else args.nchannels)
+        if width is not None and width % args.mesh:
+            ap.error(f"--mesh {args.mesh} must divide the channel width {width} "
+                     "(with --max-channels, pick a multiple of the mesh)")
+        if not any(v in os.environ for v in ("COORDINATOR_ADDRESS", "MASTER_ADDR")):
+            from coherent_rtlsdr_tpu_torch.parallel.distributed import spawn_ranks
+
+            return spawn_ranks(MODULE, args.mesh, argv)
+        mesh = _join_mesh(ap, args)
+        if mesh.get_rank() != 0:
+            return _follow(args, mesh)
 
     from coherent_rtlsdr_tpu_torch.io.config import read_config, signal_channels
     from coherent_rtlsdr_tpu_torch.io.server import CoherentServer
@@ -211,19 +274,28 @@ def main(argv=None) -> int:
             cfg, source, fcenter=args.fcenter, data_addr=args.address,
             ctrl_addr=args.ctrl_address, debug_addr=args.debug_address, header=not args.raw,
             state_path=args.state, scan_depth=args.scan_depth,
-            max_channels=args.max_channels, device=device,
+            max_channels=args.max_channels, mesh=mesh, device=device,
         )
         return _serve(args, server, device)
     finally:
         if producer is not None:
             producer.stop()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def _serve(args, server, device) -> int:
     """Run the server until --blocks, the end of the source or a signal,
-    then close its sockets."""
+    then release the other ranks of a mesh and close its sockets."""
     n = server.n_active
-    print(f"coherent_rtlsdr_tpu_torch server on {server.device}: {n} ch x "
+    shards = ""
+    if server.mesh is not None:
+        import torch.distributed as dist
+
+        shards = f", {args.mesh} channel shards over {dist.get_backend()}"
+    print(f"coherent_rtlsdr_tpu_torch server on {server.device}{shards}: {n} ch x "
           f"{args.blocksize} @ {args.fs:.0f} sps, data {args.address}, "
           f"ctrl {args.ctrl_address}")
 
@@ -252,8 +324,11 @@ def _serve(args, server, device) -> int:
         with prof:
             published = server.run(max_blocks=args.blocks)
     finally:
-        server.publisher.close()
-        server.control.close()
+        try:
+            server.close()
+        finally:
+            server.publisher.close()
+            server.control.close()
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
         path = os.path.join(args.trace, "trace.json")

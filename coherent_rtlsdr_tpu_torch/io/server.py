@@ -19,10 +19,17 @@ The state is carried on the device as the packed triple of
 Calibration persists across restarts (``save_state`` / ``restore_state``,
 the JAX package's npz layout).
 
+On a (1, S) channel mesh of ``torch.distributed`` ranks (``mesh=``, the
+process group's rank 0) the loop is the same: step 3 runs
+``parallel/sharded.py:make_sharded_server_runners``, which scatters the
+blocks over the ranks and gathers their outputs, and every read or write
+of the state is one collective operation in loop order. Only this rank
+touches the source, the sockets and the checkpoint; the other ranks run
+``serve_follower`` until ``close()``. Hot-plug on a mesh needs
+``max_channels``.
+
 The publisher is the native C++ packetizer (``native.py``) where it
-builds and finds libzmq, else pyzmq's ``FramePublisher``. Not in this port
-yet: serving on a channel-sharded mesh (the serving half of ``parallel/``);
-the constructor raises for it.
+builds and finds libzmq, else pyzmq's ``FramePublisher``.
 """
 
 import dataclasses
@@ -38,6 +45,7 @@ import torch
 
 from coherent_rtlsdr_tpu_torch import constants
 from coherent_rtlsdr_tpu_torch.io.console import ConsoleDispatcher
+from coherent_rtlsdr_tpu_torch.parallel.sharded import make_sharded_server_runners
 from coherent_rtlsdr_tpu_torch.pipeline.drivers import make_packed_scan_runner, make_packed_step
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
     PPACK_COLS,
@@ -56,9 +64,6 @@ logger = logging.getLogger("coherent_rtlsdr_tpu_torch")
 
 # packed-telemetry column index map (pipeline/state.TELEMETRY_COLS order)
 _TCOL = {name: j for j, name in enumerate(TELEMETRY_COLS)}
-
-LATER_SLICE = ("is not ported yet: it comes with the serving half of parallel/ "
-               "(ROADMAP.md, Queue 1 item 2)")
 
 
 class _LogRing(logging.Handler):
@@ -125,8 +130,6 @@ class CoherentServer:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"a channel-sharded mesh {LATER_SLICE}")
         # Hot-plug without a new runner: with ``max_channels`` set, the
         # runners process a fixed [max_channels] width and console add/del
         # only move rows. Inactive rows carry u8 128 (zero) blocks and are
@@ -138,14 +141,23 @@ class CoherentServer:
                 raise ValueError("max_channels < n_channels")
             cfg = dataclasses.replace(cfg, n_channels=max_channels)
         self.device = torch.device(device)
-        self._st = pack_state(init_state(cfg, self.device))   # raises without a card
+        self.mesh = mesh
+        self._shards = None
+        self.scan_depth = int(scan_depth)
+        self.n_runner_builds = 0
+        # On a mesh: checks it, and posts the config to the other ranks.
+        self._build_runners(cfg)
+        if mesh is None:
+            self._st = pack_state(init_state(cfg, self.device))   # raises without a card
+            self._stage_device = self.device
+        else:
+            self._st = self._shards.init_pstate()   # this rank's channel rows
+            self._stage_device = self._shards.comm_device
         # The publisher worker copies outputs to the host on its own stream,
         # so the fetch of batch k overlaps the dispatch of batch k+1.
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
-        self.n_runner_builds = 0
         self._blocks_done = 0
-        self.cfg = cfg
         self.source = source
         self.fs = cfg.fs
         self.fcenter = fcenter
@@ -176,10 +188,8 @@ class CoherentServer:
         self.control = control
         self.dispatcher = ConsoleDispatcher(self)
 
-        self.scan_depth = int(scan_depth)
         # The fused path takes flat [N, 2L] bytes, the generic one [N, L, 2].
         self._flat = cfg.fft_impl == "fused"
-        self._build_runners(cfg)
         if state_path and os.path.exists(state_path):
             self.restore_state(state_path)
 
@@ -187,19 +197,26 @@ class CoherentServer:
     # The loop carries the packed triple (ppack, ipack, hist) on the device;
     # `state` is the PipelineState view with numpy leaves for the rare host
     # touchpoints (status, checkpoint, hot-plug, tests): reading it fetches
-    # the three tensors, assigning it packs and uploads them.
+    # the three tensors, assigning it packs and uploads them. On a mesh
+    # `_st` is this rank's channel rows, and the view gathers every rank's.
 
     @property
     def state(self) -> PipelineState:
-        return unpack_state_host(*self._st)
+        st = self._st if self._shards is None else self._shards.get_state(self._st)
+        return unpack_state_host(*st)
 
     @state.setter
     def state(self, s: PipelineState) -> None:
-        self._st = pack_state_host(s, self.device)
+        if self._shards is None:
+            self._st = pack_state_host(s, self.device)
+        else:
+            self._st = self._shards.set_state(self._st, pack_state_host(s, "cpu"))
 
     def _delays_host(self) -> np.ndarray:
         """The applied per-channel delays: one column of the small packed
         tensor, fetched (and waited for) alone."""
+        if self._shards is not None:
+            return self._shards.get_delays(self._st)
         return self._st[0][:, PPACK_COLS.index("delay")].cpu().numpy()
 
     def _block_idx_host(self) -> int:
@@ -227,11 +244,19 @@ class CoherentServer:
     def _build_runners(self, cfg: PipelineConfig) -> None:
         """The packed step, and the packed scan runner when scan_depth > 1
         (``n_runner_builds`` counts the builds: a padded hot-plug makes
-        none)."""
+        none); on a mesh, every rank's."""
         self.cfg = cfg
         self.n_runner_builds += 1
-        self._step = make_packed_step(cfg)
-        self._scan = make_packed_scan_runner(cfg) if self.scan_depth > 1 else None
+        if self.mesh is None:
+            self._step = make_packed_step(cfg)
+            self._scan = make_packed_scan_runner(cfg) if self.scan_depth > 1 else None
+            return
+        if self._shards is None:
+            self._shards = make_sharded_server_runners(cfg, self.mesh, self.scan_depth,
+                                                       self.device)
+        else:
+            self._shards.rebuild(cfg)
+        self._step, self._scan = self._shards.step, self._shards.scan
 
     # ---- staging (channel padding, host -> device) -----------------------
 
@@ -242,7 +267,9 @@ class CoherentServer:
         advancing by one a block of the batch, so they never show a gap.
         On the card the bytes go through pinned host buffers and upload
         without blocking; PyTorch's pinned allocator hands a freed buffer
-        out again only after the copy that reads it has run."""
+        out again only after the copy that reads it has run. On a mesh of
+        ranks that share a card (gloo) they stay on the host: each rank
+        uploads its own channels after the scatter."""
         K, n_jit, L = len(blocks), self.cfg.n_channels, self.cfg.block_len
         pin = self.device.type == "cuda"
         sig_shape = (K, n_jit, 2 * L) if self._flat else (K, n_jit, L, 2)
@@ -257,7 +284,7 @@ class CoherentServer:
             r[i] = ref_u8.reshape(r.shape[1:])
             q[i, :n] = seqnums
             q[i, n:] = (self._blocks_done + i + 1) & 0xFFFFFFFF
-        return tuple(t.to(self.device, non_blocking=True) for t in (sigs, refs, seqs))
+        return tuple(t.to(self._stage_device, non_blocking=True) for t in (sigs, refs, seqs))
 
     def _outputs_ready(self):
         """An event after the outputs just dispatched (None on the CPU)."""
@@ -407,10 +434,12 @@ class CoherentServer:
                     self._resync_requested = False
 
                 # one device bool tensor per gate value: the step then
-                # copies nothing for it
+                # copies nothing for it (on a mesh the bool itself, which
+                # travels in the control header)
                 if gate_cache[0] != self.refnoise_enabled:
-                    gate_cache = (self.refnoise_enabled,
-                                  torch.tensor(self.refnoise_enabled, device=self.device))
+                    v = self.refnoise_enabled
+                    gate_cache = (v, v if self._shards is not None
+                                  else torch.tensor(v, device=self.device))
                 gate = gate_cache[1]
                 k = 1
                 if self._scan is not None:
@@ -662,6 +691,8 @@ class CoherentServer:
         old_n = self.n_active
         if self.max_channels is not None and old_n + 1 > self.max_channels:
             return f"channel limit reached ({self.max_channels})"
+        if self.mesh is not None and self.max_channels is None:
+            return "add with a device mesh requires --max-channels"
         try:
             idx = self.source.add_channel(serial)
         except RuntimeError as e:  # a hardware open failed
@@ -672,6 +703,8 @@ class CoherentServer:
     def del_channel(self, serial: str) -> str:
         if not hasattr(self.source, "del_channel"):
             return "del not supported for this source"
+        if self.mesh is not None and self.max_channels is None:
+            return "del with a device mesh requires --max-channels"
         old_n = self.n_active
         i = self.source.del_channel(serial)
         if i is None:
@@ -723,3 +756,10 @@ class CoherentServer:
     def shutdown(self):
         self._do_exit = True
         logger.removeHandler(self._log_handler)
+
+    def close(self) -> None:
+        """On a mesh, release the other ranks (they return from
+        ``serve_follower``): call once, after the last ``run()``, whose
+        exit has saved the checkpoint."""
+        if self._shards is not None:
+            self._shards.close()

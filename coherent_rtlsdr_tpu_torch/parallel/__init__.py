@@ -11,7 +11,9 @@ ranks of a ``torch.distributed`` process group, one a device:
     window straddling shard boundaries (one block of raw bytes exchanged
     point to point) and the smoother's small ``all_reduce``s.
 
-The streaming server on a mesh is not ported yet.
+The streaming server shards the channel axis of a (1, S) mesh: rank 0
+runs the server loop and the other ranks follow it
+(``make_sharded_server_runners``, ``serve_follower``).
 """
 
 from coherent_rtlsdr_tpu_torch.parallel.mesh import auto_mesh_shape, make_mesh
@@ -20,7 +22,9 @@ from coherent_rtlsdr_tpu_torch.parallel.sharded import (
     make_channel_sharded_align,
     make_fused_time_sharded_align,
     make_sharded_align,
+    make_sharded_server_runners,
     make_sharded_step,
+    serve_follower,
 )
 
 __all__ = [
@@ -31,4 +35,6 @@ __all__ = [
     "make_fused_time_sharded_align",
     "make_sharded_align",
     "make_sharded_step",
+    "make_sharded_server_runners",
+    "serve_follower",
 ]

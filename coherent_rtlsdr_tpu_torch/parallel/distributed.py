@@ -9,13 +9,28 @@ RANK); LOCAL_RANK and LOCAL_WORLD_SIZE, where set, place the rank on this
 host's cards (otherwise the rank and the world stand in for them: one
 host). The backend follows from the hardware: NCCL when each rank of this
 host has a card of its own, gloo on the CPU and when ranks share a card.
+
+``spawn_ranks`` is how an app run alone starts its own ranks.
 """
 
 import os
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+from datetime import timedelta
+from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+# How long a collective may wait for another rank before it raises: the
+# process group's and the sharded server's control group's. A rank that
+# died closes its connections, which gloo reports at once; the timeout
+# bounds a rank that hangs.
+RANK_TIMEOUT = timedelta(minutes=10)
 
 
 def _backend(device_type: str, local_rank: int, local_world: int) -> str:
@@ -35,13 +50,14 @@ def init_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     device_type: str = "cuda",
+    timeout: timedelta = RANK_TIMEOUT,
 ) -> None:
     """Start this rank's process group from the arguments or the
     environment; a no-op when none names a coordinator, and when a group
     exists already. ``coordinator_address`` is ``host:port`` (TCP) or a URL
     (``tcp://...``, ``file:///path``, which needs no port). ``device_type``
     is where the rank computes: "cuda" (the default; raises without a card)
-    or "cpu"."""
+    or "cpu". ``timeout`` bounds every collective of the group."""
     if dist.is_initialized():
         return
     addr = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
@@ -57,7 +73,8 @@ def init_multihost(
         return
     backend = _backend(device_type, int(os.environ.get("LOCAL_RANK", rank)),
                        int(os.environ.get("LOCAL_WORLD_SIZE", world)))
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            timeout=timeout)
 
 
 def global_mesh(time: int, channel: int):
@@ -66,3 +83,41 @@ def global_mesh(time: int, channel: int):
     from coherent_rtlsdr_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh(time, channel)
+
+
+def spawn_ranks(module: str, n_ranks: int, argv) -> int:
+    """Run ``python -m module *argv`` in ``n_ranks`` child processes, ranks
+    0 .. n-1 of one process group joined through a file store in a
+    temporary directory. SIGINT and SIGTERM to this process go on to rank 0
+    alone (a server's rank 0 then leaves its loop and releases the others).
+    Returns the first failing rank's exit code (the others are stopped),
+    else 0."""
+    root = str(Path(__file__).resolve().parents[2])
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"file://{tmp}/store",
+                   NUM_PROCESSES=str(n_ranks), LOCAL_WORLD_SIZE=str(n_ranks),
+                   PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n_ranks)))
+        procs = [subprocess.Popen([sys.executable, "-m", module, *argv],
+                                  env=dict(env, PROCESS_ID=str(r), LOCAL_RANK=str(r)))
+                 for r in range(n_ranks)]
+        relay = lambda signum, frame: procs[0].send_signal(signum)  # noqa: E731
+        saved = {s: signal.signal(s, relay) for s in (signal.SIGINT, signal.SIGTERM)}
+        running = list(procs)
+        try:
+            while running:
+                for p in list(running):
+                    rc = p.poll()
+                    if rc is None:
+                        continue
+                    running.remove(p)
+                    if rc:
+                        return rc
+                time.sleep(0.05)
+            return 0
+        finally:
+            for s, handler in saved.items():
+                signal.signal(s, handler)
+            for p in running:
+                p.kill()
+                p.wait()

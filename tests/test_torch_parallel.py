@@ -147,8 +147,13 @@ def test_refusals_before_any_rank():
 
 
 def test_parallel_imports_no_jax():
-    """The port's parallel/ imports neither jax nor the JAX package."""
-    for path in sorted((REPO / "coherent_rtlsdr_tpu_torch" / "parallel").glob("*.py")):
+    """The port's parallel/, the server and the two apps that run on a
+    mesh, and the test ranks import neither jax nor the JAX package."""
+    port = REPO / "coherent_rtlsdr_tpu_torch"
+    paths = [*sorted((port / "parallel").glob("*.py")), port / "io" / "server.py",
+             port / "apps" / "coherent_server.py", port / "apps" / "align_offline.py",
+             CHILD, REPO / "tests" / "_torch_server_child.py"]
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])

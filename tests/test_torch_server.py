@@ -508,24 +508,43 @@ def test_app_runs_on_the_cpu(tmp_path, capsys):
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
 
 
-@pytest.mark.parametrize("argv", [pytest.param(["--mesh", "2"], id="argv2")])
-def test_app_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+@pytest.mark.parametrize("argv", [pytest.param(["--mesh", "3"], id="argv2"),
+                                  pytest.param(["--mesh", "2", "--max-channels", "5"],
+                                               id="max_channels")])
+def test_app_refuses_what_is_not_ported(argv, capsys):
+    """``--mesh S`` must divide the channel count (-n 4 by default), or
+    ``--max-channels``: the app stops before any rank starts."""
+    with pytest.raises(SystemExit):
         app.main(["--cpu", *argv])
+    assert "must divide the channel width" in capsys.readouterr().err
+
+
+class _MeshShape:
+    """A stand-in for a DeviceMesh of the given (time, channel) shape: the
+    server's mesh checks come before any collective."""
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+    def size(self, dim):
+        return self.shape[dim]
 
 
 def test_defaults_are_the_card_and_unported_options_raise():
     """The server defaults to device="cuda" and raises without a card; a
-    mesh raises; a hardware drift relief is ticked from the loop with the
-    applied delays and restored when the loop ends."""
+    mesh with a time axis larger than 1, or whose channel shards do not
+    divide the channels, raises; a hardware drift relief is ticked from
+    the loop with the applied delays and restored when the loop ends."""
     assert inspect.signature(CoherentServer).parameters["device"].default == "cuda"
     cfg = PipelineConfig(n_channels=2, block_len=L)
     kw = dict(publisher=FakePublisher(), control=FakeControl())
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             CoherentServer(cfg, None, **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        CoherentServer(cfg, None, mesh=object(), device="cpu", **kw)
+    with pytest.raises(ValueError, match="shards channels only"):
+        CoherentServer(cfg, None, mesh=_MeshShape(2, 1), device="cpu", **kw)
+    with pytest.raises(ValueError, match="not divisible by 3 channel shards"):
+        CoherentServer(cfg, None, mesh=_MeshShape(1, 3), device="cpu", **kw)
 
     class Relief:
         def __init__(self):
