@@ -874,85 +874,61 @@ def timed_server(cfg, cap, scan_depth, k, dev, window=SERVER_WINDOW):
 
 
 def host_breakdown(srv, n_blocks):
-    """One more run of ``srv`` with its loop's parts timed on the host
-    clock, in ms a block. Each part is the host time of one function of
-    ``io/server.py`` (or of the source), wrapped on this instance for the
-    run, so a change to one of these functions changes its part:
+    """One more run of ``srv`` with the port's host spans recorded
+    (``utils.SPANS``, enabled for the run), in ms a block:
 
-      source          ``srv.source.next_block``
-      stage           ``CoherentServer._stage`` (pad + pinned upload)
-      dispatch        ``srv._step`` and ``srv._scan`` (the runner's launches)
+      source          ``server.source`` (the source's ``next_block``)
+      stage           ``server.stage`` (pad + pinned upload)
+      dispatch        ``server.dispatch`` (the runner's launches)
       main_rest       the run's wall clock less the three above (queue
                       waits for the worker, control polls, the loop)
-      worker_fetch    ``CoherentServer._fetch`` (its wait for the device
-                      included)
-      worker_publish  ``CoherentServer._publish_batch`` less its fetch
-                      (frame assembly and publish)
+      worker_fetch    ``server.fetch`` (its wait for the device included)
+      worker_publish  ``server.publish`` (frame assembly and publish)
 
     On a mesh server, three parts of dispatch besides:
 
-      dispatch_mesh_header   ``ShardedServerRunners._post`` (the control
-                             header's gloo broadcast, posted without a wait)
-      dispatch_mesh_scatter  its ``_scatter_blocks`` (the blocks packed and
+      dispatch_mesh_header   ``mesh.header`` (the control header's gloo
+                             broadcast, posted without a wait)
+      dispatch_mesh_scatter  ``mesh.scatter`` (the blocks packed and
                              scattered)
-      dispatch_mesh_gather   its ``_gather_outputs`` (the outputs packed and
+      dispatch_mesh_gather   ``mesh.gather`` (the outputs packed and
                              gathered)
 
-    ``longest_call_ms``: each wrapped function's longest single call, which
-    tells a steady cost from a few stalls.
+    ``longest_call_ms``: each part's longest single span, which tells a
+    steady cost from a few stalls.
     """
-    import collections
+    from coherent_rtlsdr_tpu_torch.utils import SPANS
 
-    spent = collections.defaultdict(float)
-    longest = collections.defaultdict(float)
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                dt = time.perf_counter() - t0
-                spent[name] += dt
-                longest[name] = max(longest[name], dt)
-        return run
-
-    parts = [("source", srv.source, "next_block"), ("stage", srv, "_stage"),
-             ("dispatch", srv, "_step"), ("fetch", srv, "_fetch"),
-             ("publish", srv, "_publish_batch")]
-    if srv._scan is not None:
-        parts.append(("dispatch", srv, "_scan"))
-    shards = getattr(srv, "_shards", None)
-    if shards is not None:
-        parts += [("mesh_header", shards, "_post"), ("mesh_scatter", shards, "_scatter_blocks"),
-                  ("mesh_gather", shards, "_gather_outputs")]
-    # (object, attribute, the instance's own value or None for a method of
-    # the class, which deleting the wrapper brings back)
-    saved = [(obj, attr, vars(obj).get(attr)) for _, obj, attr in parts]
-    for name, obj, attr in parts:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    SPANS.clear()
+    SPANS.enable()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         n = srv.run(max_blocks=n_blocks)
         wall = time.perf_counter() - t0
     finally:
-        for obj, attr, own in saved:
-            if own is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, own)
-    ms = lambda sec: sec * 1e3 / n
-    main = spent["source"] + spent["stage"] + spent["dispatch"]
-    mesh = ({} if shards is None else
-            dict(dispatch_mesh_header=ms(spent["mesh_header"]),
-                 dispatch_mesh_scatter=ms(spent["mesh_scatter"]),
-                 dispatch_mesh_gather=ms(spent["mesh_gather"])))
-    return dict(blocks=n, wall_ms_per_block=ms(wall), source=ms(spent["source"]),
-                stage=ms(spent["stage"]), dispatch=ms(spent["dispatch"]), **mesh,
-                main_rest=ms(wall - main), worker_fetch=ms(spent["fetch"]),
-                worker_publish=ms(spent["publish"] - spent["fetch"]),
-                longest_call_ms={name: v * 1e3 for name, v in longest.items()})
+        SPANS.disable()
+    summary = SPANS.summary(t0)
+    if summary["dropped"]:
+        raise AssertionError(f"host_breakdown: {summary['dropped']} spans dropped")
+    parts = dict(source="server.source", stage="server.stage", dispatch="server.dispatch",
+                 fetch="server.fetch", publish="server.publish")
+    if getattr(srv, "_shards", None) is not None:
+        parts.update(mesh_header="mesh.header", mesh_scatter="mesh.scatter",
+                     mesh_gather="mesh.gather")
+    spans = {part: summary["spans"].get(name, dict(total_ms=0.0, max_ms=0.0))
+             for part, name in parts.items()}
+    ms = lambda part: spans[part]["total_ms"] / n
+    mesh = ({} if "mesh_header" not in spans else
+            dict(dispatch_mesh_header=ms("mesh_header"),
+                 dispatch_mesh_scatter=ms("mesh_scatter"),
+                 dispatch_mesh_gather=ms("mesh_gather")))
+    main = ms("source") + ms("stage") + ms("dispatch")
+    return dict(blocks=n, wall_ms_per_block=wall * 1e3 / n, source=ms("source"),
+                stage=ms("stage"), dispatch=ms("dispatch"), **mesh,
+                main_rest=wall * 1e3 / n - main, worker_fetch=ms("fetch"),
+                worker_publish=ms("publish"),
+                longest_call_ms={part: d["max_ms"] for part, d in spans.items()})
 
 
 def phase_server(dev, smi, k, fk):

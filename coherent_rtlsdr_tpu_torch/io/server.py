@@ -14,6 +14,18 @@ Loop per batch of blocks:
   6. at most 4 times a second, hand the applied delays to the hardware
      drift relief (``io/hwcontrol.py``) when one is attached.
 
+Under torch.profiler, or after ``utils.SPANS.enable()``, the loop records
+host spans (``utils/telemetry.py:SpanRecorder``), each tagged with the
+server's global index of its block (the first of a batch):
+``server.block`` is one iteration, holding ``server.source`` (1),
+``server.stage`` (2), ``server.dispatch`` (3: the step, whose own spans
+are ``step.*`` and ``kernels.*``), ``server.queue_wait`` (the hand-over
+to the worker, waiting while two batches are queued) and
+``server.control`` (5 and 6). The worker's ``server.publish_batch`` holds
+``server.fetch`` (its wait for the copy, and so for the card, is
+``server.fetch_wait``) and ``server.publish`` (frame assembly, the
+publisher, the telemetry ring).
+
 The state is carried on the device as the packed triple of
 ``pipeline/state.pack_state``; the ``state`` property is its host view.
 Calibration persists across restarts (``save_state`` / ``restore_state``,
@@ -58,7 +70,7 @@ from coherent_rtlsdr_tpu_torch.pipeline.state import (
     state_to_numpy,
     unpack_state_host,
 )
-from coherent_rtlsdr_tpu_torch.utils.telemetry import TelemetryRecorder
+from coherent_rtlsdr_tpu_torch.utils.telemetry import SPANS, TelemetryRecorder
 
 logger = logging.getLogger("coherent_rtlsdr_tpu_torch")
 
@@ -294,22 +306,26 @@ class CoherentServer:
         ev.record()
         return ev
 
-    def _fetch(self, ready, *tensors):
+    def _fetch(self, ready, *tensors, record: bool):
         """The tensors as numpy arrays. On the card, copies on the side
         stream after ``ready`` into pinned buffers; the caller holds the
         device tensors until this returns, so their memory is not reused
-        while the copy reads it."""
-        if ready is None:
-            return [t.numpy() for t in tensors]
-        with torch.cuda.stream(self._copy_stream):
-            self._copy_stream.wait_event(ready)
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-            for h, t in zip(host, tensors):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        done.synchronize()
-        return [h.numpy() for h in host]
+        while the copy reads it. Recorded (``record``) as the span
+        ``server.fetch``, its wait for the copy as ``server.fetch_wait``
+        (which waits for the batch's dispatch on the card too)."""
+        with SPANS.span("server.fetch", on=record):
+            if ready is None:
+                return [t.numpy() for t in tensors]
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(ready)
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+                for h, t in zip(host, tensors):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            with SPANS.span("server.fetch_wait", on=record):
+                done.synchronize()
+            return [h.numpy() for h in host]
 
     # ---- channel hot-plug (console add/del) ------------------------------
 
@@ -427,77 +443,94 @@ class CoherentServer:
             while not self._do_exit and not pub_err:
                 if max_blocks is not None and dispatched >= max_blocks:
                     break
+                # read once an iteration: the iteration's spans and its
+                # batch's worker spans are recorded, or not, together
+                with SPANS.poll() as record, SPANS.span("server.block", self._blocks_done):
+                    if self._resync_requested:
+                        s = self.state
+                        self.state = dataclasses.replace(s, synced=np.zeros_like(s.synced))
+                        self._resync_requested = False
 
-                if self._resync_requested:
-                    s = self.state
-                    self.state = dataclasses.replace(s, synced=np.zeros_like(s.synced))
-                    self._resync_requested = False
-
-                # one device bool tensor per gate value: the step then
-                # copies nothing for it (on a mesh the bool itself, which
-                # travels in the control header)
-                if gate_cache[0] != self.refnoise_enabled:
-                    v = self.refnoise_enabled
-                    gate_cache = (v, v if self._shards is not None
-                                  else torch.tensor(v, device=self.device))
-                gate = gate_cache[1]
-                k = 1
-                if self._scan is not None:
-                    k = self.scan_depth
-                    if max_blocks is not None:
-                        k = min(k, max_blocks - dispatched)
-                blocks = []
-                for _ in range(k):
-                    blk = self.source.next_block()
-                    if blk is None:
+                    # one device bool tensor per gate value: the step then
+                    # copies nothing for it (on a mesh the bool itself, which
+                    # travels in the control header)
+                    if gate_cache[0] != self.refnoise_enabled:
+                        v = self.refnoise_enabled
+                        gate_cache = (v, v if self._shards is not None
+                                      else torch.tensor(v, device=self.device))
+                    gate = gate_cache[1]
+                    k = 1
+                    if self._scan is not None:
+                        k = self.scan_depth
+                        if max_blocks is not None:
+                            k = min(k, max_blocks - dispatched)
+                    blocks = []
+                    with SPANS.span("server.source"):
+                        for _ in range(k):
+                            blk = self.source.next_block()
+                            if blk is None:
+                                break
+                            blocks.append(blk)
+                    if not blocks:
                         break
-                    blocks.append(blk)
-                if not blocks:
-                    break
 
-                na = self.n_active
-                n_jit = self.cfg.n_channels
-                if self._scan is not None and len(blocks) > 1:
-                    sigs, refs, seqs = self._stage(blocks)
-                    self._st, (wire_sigs, wire_refs), telem = self._scan(
-                        self._st, sigs, refs, gate, seqs)
-                    if not qput(dict(
-                        wire_sigs=wire_sigs, wire_refs=wire_refs, telem=telem,
-                        ready=self._outputs_ready(), seqnums=[b[2] for b in blocks],
-                        na=na, base=base, n_jit=n_jit, L=self.cfg.block_len,
-                    )):
-                        break
-                else:
-                    enqueued = 0
-                    for j, blk in enumerate(blocks):
-                        sig, ref, seq = self._stage([blk])
-                        self._st, wire_sig, wire_ref, telem = self._step(
-                            self._st, sig[0], ref[0], gate, seq[0])
-                        if not qput(dict(
-                            wire_sigs=wire_sig, wire_refs=wire_ref, telem=telem,
-                            ready=self._outputs_ready(), seqnums=[blk[2]], na=na,
-                            base=base + j, n_jit=n_jit, L=self.cfg.block_len,
-                        )):
+                    na = self.n_active
+                    n_jit = self.cfg.n_channels
+                    if self._scan is not None and len(blocks) > 1:
+                        with SPANS.span("server.stage"):
+                            sigs, refs, seqs = self._stage(blocks)
+                        with SPANS.span("server.dispatch"):
+                            self._st, (wire_sigs, wire_refs), telem = self._scan(
+                                self._st, sigs, refs, gate, seqs)
+                            ready = self._outputs_ready()
+                        with SPANS.span("server.queue_wait"):
+                            queued = qput(dict(
+                                wire_sigs=wire_sigs, wire_refs=wire_refs, telem=telem,
+                                ready=ready, seqnums=[b[2] for b in blocks], na=na, base=base,
+                                n_jit=n_jit, L=self.cfg.block_len,
+                                request=self._blocks_done, record=record,
+                            ))
+                        if not queued:
                             break
-                        enqueued += 1
-                    if enqueued < len(blocks):
-                        # publisher died mid-batch: count only what was
-                        # enqueued, then leave on pub_err
-                        base += enqueued
-                        dispatched += enqueued
-                        self._blocks_done += enqueued
-                        break
-                base += len(blocks)
-                dispatched += len(blocks)
-                self._blocks_done += len(blocks)
-                self._poll_control()
-                if self.hw_relief is not None:
-                    # the host view of delay waits for the dispatch in
-                    # flight, so 4 Hz at most (the relief acts over seconds)
-                    now = time.monotonic()
-                    if now >= self._hw_relief_next:
-                        self._hw_relief_next = now + 0.25
-                        self.hw_relief.tick(self._delays_host()[: self.n_active])
+                    else:
+                        enqueued = 0
+                        for j, blk in enumerate(blocks):
+                            with SPANS.span("server.stage"):
+                                sig, ref, seq = self._stage([blk])
+                            with SPANS.span("server.dispatch"):
+                                self._st, wire_sig, wire_ref, telem = self._step(
+                                    self._st, sig[0], ref[0], gate, seq[0])
+                                ready = self._outputs_ready()
+                            with SPANS.span("server.queue_wait"):
+                                queued = qput(dict(
+                                    wire_sigs=wire_sig, wire_refs=wire_ref, telem=telem,
+                                    ready=ready, seqnums=[blk[2]], na=na, base=base + j,
+                                    n_jit=n_jit, L=self.cfg.block_len,
+                                    request=self._blocks_done + j, record=record,
+                                ))
+                            if not queued:
+                                break
+                            enqueued += 1
+                        if enqueued < len(blocks):
+                            # publisher died mid-batch: count only what was
+                            # enqueued, then leave on pub_err
+                            base += enqueued
+                            dispatched += enqueued
+                            self._blocks_done += enqueued
+                            break
+                    base += len(blocks)
+                    dispatched += len(blocks)
+                    self._blocks_done += len(blocks)
+                    with SPANS.span("server.control"):
+                        self._poll_control()
+                        if self.hw_relief is not None:
+                            # the host view of delay waits for the dispatch
+                            # in flight, so 4 Hz at most (the relief acts
+                            # over seconds)
+                            now = time.monotonic()
+                            if now >= self._hw_relief_next:
+                                self._hw_relief_next = now + 0.25
+                                self.hw_relief.tick(self._delays_host()[: self.n_active])
         finally:
             if pub_err:
                 pubq.queue.clear()  # the worker is gone; nothing drains these
@@ -521,34 +554,41 @@ class CoherentServer:
         return published[0]
 
     def _publish_batch(self, wire_sigs, wire_refs, telem, ready, seqnums, na, base,
-                       n_jit, L) -> int:
+                       n_jit, L, request, record) -> int:
         """Fetch one dispatched batch's outputs and publish every frame
         (runs on the publisher worker). Frame layout: channel 0 is the
         reference; the phases go out on the debug port. ``telem`` is the
         packed [.., N, 10] tensor (state.TELEMETRY_COLS). Returns the
-        frames published."""
-        T = len(seqnums)
-        ws, wr, tp = self._fetch(ready, wire_sigs, wire_refs, telem)
-        ws = ws.reshape(T, n_jit, L, 2)
-        wr = wr.reshape(T, L, 2)
-        tp = tp.reshape(T, n_jit, len(_TCOL))
-        col = _TCOL
-        for i, seq in enumerate(seqnums):
-            frame = np.concatenate([wr[i][None], ws[i][:na]], axis=0)
-            ref_seq = np.asarray([base + i + 1], np.uint32)
-            all_seq = np.concatenate([ref_seq, seq.astype(np.uint32)])
-            phases = np.concatenate([
-                np.ones(1, np.complex64),
-                (tp[i, :na, col["phase_re"]]
-                 + 1j * tp[i, :na, col["phase_im"]]).astype(np.complex64),
-            ])
-            self.publisher.publish(frame, all_seq, phases)
-            self._record_block(
-                phases[1:], tp[i, :na, col["lag"]], tp[i, :na, col["residual"]],
-                tp[i, :na, col["mag"]], tp[i, :na, col["gap"]] > 0,
-                block_idx=base + i + 1,
-            )
-        return T
+        frames published.
+
+        With ``record`` (the loop's span flag when it dispatched the batch)
+        the batch is the span ``server.publish_batch`` of block ``request``,
+        holding ``server.fetch`` and ``server.publish`` (frame assembly,
+        the publisher and the telemetry ring)."""
+        with SPANS.span("server.publish_batch", request, on=record):
+            T = len(seqnums)
+            ws, wr, tp = self._fetch(ready, wire_sigs, wire_refs, telem, record=record)
+            with SPANS.span("server.publish", on=record):
+                ws = ws.reshape(T, n_jit, L, 2)
+                wr = wr.reshape(T, L, 2)
+                tp = tp.reshape(T, n_jit, len(_TCOL))
+                col = _TCOL
+                for i, seq in enumerate(seqnums):
+                    frame = np.concatenate([wr[i][None], ws[i][:na]], axis=0)
+                    ref_seq = np.asarray([base + i + 1], np.uint32)
+                    all_seq = np.concatenate([ref_seq, seq.astype(np.uint32)])
+                    phases = np.concatenate([
+                        np.ones(1, np.complex64),
+                        (tp[i, :na, col["phase_re"]]
+                         + 1j * tp[i, :na, col["phase_im"]]).astype(np.complex64),
+                    ])
+                    self.publisher.publish(frame, all_seq, phases)
+                    self._record_block(
+                        phases[1:], tp[i, :na, col["lag"]], tp[i, :na, col["residual"]],
+                        tp[i, :na, col["mag"]], tp[i, :na, col["gap"]] > 0,
+                        block_idx=base + i + 1,
+                    )
+            return T
 
     def _record_block(self, phases, lag, residual, mag, gap, block_idx: int = -1) -> None:
         """Per-block observability: the telemetry ring and gap-event log

@@ -30,6 +30,9 @@ kernel written by hand (``csrc/fused_measure.cu``, ``csrc/fused_apply.cu``,
 bound in ``kernels/fused_cuda.py``), and dispatches on the device of its
 input: a CPU tensor runs the plain version, a CUDA tensor launches the
 kernel (or raises). The instance counts the runs of each (``COUNTS``).
+When ``utils.SPANS`` is recording, each dispatch is the host span
+``kernels.<operation>``: on the card, the ``fused_cuda`` wrapper's checks,
+allocations and ctypes launch; on the CPU, the whole plain version.
 The kernels take m in {64, 128, 256}; at m = 256 (L = 32768) each runs a
 window on a cluster of four CTAs (``csrc/fused_cluster.cuh``), one launch
 a call as at the smaller sizes (``fused_cuda.ADMITTED_M``). The plain
@@ -56,6 +59,7 @@ from coherent_rtlsdr_tpu_torch.kernels.fft4step import (
     exact_f32_matmul,
 )
 from coherent_rtlsdr_tpu_torch.ops.delay import iramp_fraction
+from coherent_rtlsdr_tpu_torch.utils.telemetry import SPANS
 
 _TWO_PI = 2.0 * math.pi
 
@@ -134,26 +138,28 @@ class FusedPipelineKernels:
         """ref_raw ``[T, m/2, 2m]`` int8 reference blocks. Returns the
         reference window spectra R as float32 ``[T-1, m, m, 2]`` (re, im)
         and their energies eref = sum |R|^2, float32 ``[T-1]``."""
-        if ref_raw.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        with SPANS.span("kernels.measure_ref"):
+            if ref_raw.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.measure_ref(self, ref_raw)
-        if ref_raw.device.type == "cpu":
-            return self.measure_ref_plain(ref_raw)
-        raise ValueError(f"no measure_ref for device {ref_raw.device}")
+                return fused_cuda.measure_ref(self, ref_raw)
+            if ref_raw.device.type == "cpu":
+                return self.measure_ref_plain(ref_raw)
+            raise ValueError(f"no measure_ref for device {ref_raw.device}")
 
     def measure_spec(self, raw: torch.Tensor, R: torch.Tensor, eref: torch.Tensor):
         """raw ``[T, N, m/2, 2m]`` int8 channel blocks against the
         reference spectra of :meth:`measure_ref`. Returns (lag, z_re, z_im,
         mag, papr), each float32 ``[T-1, N]``, and (dre, dim), the permuted
         window spectra as bf16 ``[T-1, N, m, m]``."""
-        if raw.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        with SPANS.span("kernels.measure_spec"):
+            if raw.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.measure_spec(self, raw, R, eref)
-        if raw.device.type == "cpu":
-            return self.measure_spec_plain(raw, R, eref)
-        raise ValueError(f"no measure_spec for device {raw.device}")
+                return fused_cuda.measure_spec(self, raw, R, eref)
+            if raw.device.type == "cpu":
+                return self.measure_spec_plain(raw, R, eref)
+            raise ValueError(f"no measure_spec for device {raw.device}")
 
     def measure_i8_spec(self, raw: torch.Tensor, ref_raw: torch.Tensor):
         """:meth:`measure_spec` of ``raw`` against :meth:`measure_ref` of
@@ -165,13 +171,14 @@ class FusedPipelineKernels:
         float32 advance / phase factor ``[T-1, N]``. Returns the phase- and
         delay-corrected overlap-save centre half as int8 wire blocks ``[T-1,
         N, m/2, 2m]`` (byte-identical to the ``[L, 2]`` wire layout)."""
-        if dre.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        with SPANS.span("kernels.apply_spec_i8"):
+            if dre.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.apply_spec_i8(self, dre, dim, advance, phase_re, phase_im)
-        if dre.device.type == "cpu":
-            return self.apply_spec_i8_plain(dre, dim, advance, phase_re, phase_im)
-        raise ValueError(f"no apply_spec_i8 for device {dre.device}")
+                return fused_cuda.apply_spec_i8(self, dre, dim, advance, phase_re, phase_im)
+            if dre.device.type == "cpu":
+                return self.apply_spec_i8_plain(dre, dim, advance, phase_re, phase_im)
+            raise ValueError(f"no apply_spec_i8 for device {dre.device}")
 
     def measure_i8(self, raw: torch.Tensor, ref_raw: torch.Tensor):
         """The recompute pair's measure: raw ``[T, N, m/2, 2m]`` int8
@@ -179,51 +186,56 @@ class FusedPipelineKernels:
         2m]`` (two kernels, as :meth:`measure_i8_spec`). Returns (lag, z_re,
         z_im, mag, papr), each float32 ``[T-1, N]``, the scalars of
         :meth:`measure_spec`, and stores no spectrum."""
-        if raw.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        R, eref = self.measure_ref(ref_raw)
+        with SPANS.span("kernels.measure_i8"):
+            if raw.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.measure_i8(self, raw, *self.measure_ref(ref_raw))
-        if raw.device.type == "cpu":
-            return self.measure_i8_plain(raw, *self.measure_ref(ref_raw))
-        raise ValueError(f"no measure_i8 for device {raw.device}")
+                return fused_cuda.measure_i8(self, raw, R, eref)
+            if raw.device.type == "cpu":
+                return self.measure_i8_plain(raw, R, eref)
+            raise ValueError(f"no measure_i8 for device {raw.device}")
 
     def apply_i8(self, raw: torch.Tensor, advance, phase_re, phase_im):
         """The recompute pair's apply: raw ``[T, N, m/2, 2m]`` int8 blocks
         and float32 advance / phase factor ``[T-1, N]``. Recomputes the
         window spectra and returns the wire blocks of :meth:`apply_spec_i8`
         from the float32 spectra, int8 ``[T-1, N, m/2, 2m]``."""
-        if raw.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        with SPANS.span("kernels.apply_i8"):
+            if raw.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.apply_i8(self, raw, advance, phase_re, phase_im)
-        if raw.device.type == "cpu":
-            return self.apply_i8_plain(raw, advance, phase_re, phase_im)
-        raise ValueError(f"no apply_i8 for device {raw.device}")
+                return fused_cuda.apply_i8(self, raw, advance, phase_re, phase_im)
+            if raw.device.type == "cpu":
+                return self.apply_i8_plain(raw, advance, phase_re, phase_im)
+            raise ValueError(f"no apply_i8 for device {raw.device}")
 
     def measure(self, pre, pim, rre, rim):
         """Float path: block planes ``pre``/``pim`` bf16 ``[T, N, m/2, m]``
         against the reference window spectra ``rre``/``rim`` bf16 ``[T-1,
         m, m]``. Returns (lag, |z|, sum |D|^2, sum |G|^2), each float32
         ``[T-1, N]``."""
-        if pre.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        with SPANS.span("kernels.measure"):
+            if pre.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.measure_planes(self, pre, pim, rre, rim)
-        if pre.device.type == "cpu":
-            return self.measure_plain(pre, pim, rre, rim)
-        raise ValueError(f"no measure for device {pre.device}")
+                return fused_cuda.measure_planes(self, pre, pim, rre, rim)
+            if pre.device.type == "cpu":
+                return self.measure_plain(pre, pim, rre, rim)
+            raise ValueError(f"no measure for device {pre.device}")
 
     def apply(self, pre, pim, advance):
         """Float path: block planes ``pre``/``pim`` bf16 ``[T, N, m/2, m]``
         and advance float32 ``[T-1, N]``. Returns the delay-corrected
         overlap-save centre half (yre, yim), each float32 ``[T-1, N, W/2]``."""
-        if pre.is_cuda:
-            from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
+        with SPANS.span("kernels.apply"):
+            if pre.is_cuda:
+                from coherent_rtlsdr_tpu_torch.kernels import fused_cuda
 
-            return fused_cuda.apply_planes(self, pre, pim, advance)
-        if pre.device.type == "cpu":
-            return self.apply_plain(pre, pim, advance)
-        raise ValueError(f"no apply for device {pre.device}")
+                return fused_cuda.apply_planes(self, pre, pim, advance)
+            if pre.device.type == "cpu":
+                return self.apply_plain(pre, pim, advance)
+            raise ValueError(f"no apply for device {pre.device}")
 
     # -- plain versions ---------------------------------------------------
     def _window_planes(self, pre, pim):

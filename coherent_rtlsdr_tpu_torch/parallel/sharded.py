@@ -59,6 +59,7 @@ from coherent_rtlsdr_tpu_torch.pipeline.state import (
     pack_state,
 )
 from coherent_rtlsdr_tpu_torch.pipeline.step import step
+from coherent_rtlsdr_tpu_torch.utils.telemetry import SPANS
 
 ZERO_U8 = 0x80   # offset-binary zero: i8 0, complex 0
 
@@ -566,10 +567,12 @@ class ShardedServerRunners:
 
     def _post(self, op: int, a: int = 0, b: int = 0) -> None:
         """Broadcast a header without waiting for it (the broadcast holds
-        its tensor); a failed one raises when the next is posted."""
-        self._wait_posted()
-        self._posted = dist.broadcast(torch.tensor([op, a, b], dtype=torch.int64), self._src,
-                                      group=self._ctl, async_op=True)
+        its tensor); a failed one raises when the next is posted. The host
+        span ``mesh.header``."""
+        with SPANS.span("mesh.header"):
+            self._wait_posted()
+            self._posted = dist.broadcast(torch.tensor([op, a, b], dtype=torch.int64),
+                                          self._src, group=self._ctl, async_op=True)
 
     def _build(self, cfg: PipelineConfig) -> None:
         self.local_cfg = dataclasses.replace(cfg, n_channels=cfg.n_channels // self.S)
@@ -598,40 +601,42 @@ class ShardedServerRunners:
         """One scatter: rank r's chunk of packed bytes holds its seqnums
         and signal rows (channels r n .. (r + 1) n) and the reference
         block. Returns this rank's (seq, sig, ref) on its device."""
-        n = self.local_cfg.n_channels
-        ins = [((k, n), torch.int64), ((k, n, *self._block_tail), torch.uint8),
-               ((k, *self._block_tail), torch.uint8)]
-        offs, nbytes = _layout(ins)
-        parts = None
-        if self.leader:
-            packed = torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.comm_device)
-            by_rank = [x.unflatten(1, (self.S, n)).movedim(1, 0) for x in (seqs, sigs)]
-            # the reference block goes to every rank: copy_ broadcasts it
-            for (shape, dtype), off, x in zip(ins, offs, (*by_rank, refs)):
-                _bytes(packed, off, shape, dtype).copy_(x)
-            parts = list(packed.unbind(0))
-        chunk = self._empty((nbytes,), torch.uint8)
-        dist.scatter(chunk, parts, self._src, group=self.group)
-        chunk = chunk.to(self.device, non_blocking=True)
-        return tuple(_bytes(chunk, off, shape, dtype) for (shape, dtype), off in zip(ins, offs))
+        with SPANS.span("mesh.scatter"):
+            n = self.local_cfg.n_channels
+            ins = [((k, n), torch.int64), ((k, n, *self._block_tail), torch.uint8),
+                   ((k, *self._block_tail), torch.uint8)]
+            offs, nbytes = _layout(ins)
+            parts = None
+            if self.leader:
+                packed = torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.comm_device)
+                by_rank = [x.unflatten(1, (self.S, n)).movedim(1, 0) for x in (seqs, sigs)]
+                # the reference block goes to every rank: copy_ broadcasts it
+                for (shape, dtype), off, x in zip(ins, offs, (*by_rank, refs)):
+                    _bytes(packed, off, shape, dtype).copy_(x)
+                parts = list(packed.unbind(0))
+            chunk = self._empty((nbytes,), torch.uint8)
+            dist.scatter(chunk, parts, self._src, group=self.group)
+            chunk = chunk.to(self.device, non_blocking=True)
+            return tuple(_bytes(chunk, off, shape, dtype) for (shape, dtype), off in zip(ins, offs))
 
     def _gather_outputs(self, *xs):
         """One gather: every rank's ``xs`` (each ``[K, n, ...]``) packed as
         bytes, put together on rank 0 as ``[K, S n, ...]`` each (views of
         the gathered bytes when S == 1); Nones elsewhere."""
-        specs = [(tuple(x.shape), x.dtype) for x in xs]
-        offs, nbytes = _layout(specs)
-        out = self._empty((nbytes,), torch.uint8)
-        for (shape, dtype), off, x in zip(specs, offs, xs):
-            _bytes(out, off, shape, dtype).copy_(x)
-        gathered = (torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.comm_device)
-                    if self.leader else None)
-        dist.gather(out, None if gathered is None else list(gathered.unbind(0)), self._src,
-                    group=self.group)
-        if gathered is None:
-            return (None,) * len(xs)
-        return tuple(_bytes(gathered, off, shape, dtype).movedim(0, 1).flatten(1, 2)
-                     for (shape, dtype), off in zip(specs, offs))
+        with SPANS.span("mesh.gather"):
+            specs = [(tuple(x.shape), x.dtype) for x in xs]
+            offs, nbytes = _layout(specs)
+            out = self._empty((nbytes,), torch.uint8)
+            for (shape, dtype), off, x in zip(specs, offs, xs):
+                _bytes(out, off, shape, dtype).copy_(x)
+            gathered = (torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.comm_device)
+                        if self.leader else None)
+            dist.gather(out, None if gathered is None else list(gathered.unbind(0)), self._src,
+                        group=self.group)
+            if gathered is None:
+                return (None,) * len(xs)
+            return tuple(_bytes(gathered, off, shape, dtype).movedim(0, 1).flatten(1, 2)
+                         for (shape, dtype), off in zip(specs, offs))
 
     def _empty(self, shape, dtype):
         return torch.empty(shape, dtype=dtype, device=self.comm_device, pin_memory=self._pin)

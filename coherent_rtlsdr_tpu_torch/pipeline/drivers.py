@@ -12,6 +12,11 @@ The fused path emits int8 wire bytes straight from its apply kernel (flat
 ``c64_to_i8_iq`` (``[N, L, 2]``), as the JAX package does. The JAX package
 scans with ``lax.scan`` inside one jitted program; here the scan is a
 Python loop over the blocks.
+
+The packed runners record the host spans ``step.unpack`` (the packed
+state to a ``PipelineState``) and ``step.pack`` (``pack_state`` and
+``pack_telemetry``) around the fused step's own (``pipeline/step.py``),
+when ``utils.SPANS`` is recording.
 """
 
 from typing import Tuple
@@ -31,6 +36,7 @@ from coherent_rtlsdr_tpu_torch.pipeline.state import (
     unpack_state,
 )
 from coherent_rtlsdr_tpu_torch.pipeline.step import as_seq, step
+from coherent_rtlsdr_tpu_torch.utils.telemetry import SPANS
 
 
 def _wire(out: BlockOutput):
@@ -83,10 +89,12 @@ def make_packed_scan_runner(cfg: PipelineConfig):
     ``pstate = (ppack, ipack, hist)``."""
 
     def run(pstate, sigs, refs, gate, seqs):
-        state = unpack_state(*pstate)
-        seqs = as_seq(seqs, state.last_seq.device)
+        with SPANS.span("step.unpack"):
+            state = unpack_state(*pstate)
+            seqs = as_seq(seqs, state.last_seq.device)
         state, pay, telems = _scan(cfg, state, sigs, refs, gate, seqs, _wire)
-        return pack_state(state), pay, torch.stack([pack_telemetry(t) for t in telems])
+        with SPANS.span("step.pack"):
+            return pack_state(state), pay, torch.stack([pack_telemetry(t) for t in telems])
 
     return run
 
@@ -96,9 +104,12 @@ def make_packed_step(cfg: PipelineConfig):
     sig, ref, gate, seq) -> (pstate, wire, wire_ref, telem [N, 10])``."""
 
     def run(pstate, sig_u8, ref_u8, gate, seq):
-        state, out = step(cfg, unpack_state(*pstate), sig_u8, ref_u8, gate, seq=seq)
+        with SPANS.span("step.unpack"):
+            state = unpack_state(*pstate)
+        state, out = step(cfg, state, sig_u8, ref_u8, gate, seq=seq)
         wire, wire_ref = _wire(out)
-        return pack_state(state), wire, wire_ref, pack_telemetry(out.telemetry)
+        with SPANS.span("step.pack"):
+            return pack_state(state), wire, wire_ref, pack_telemetry(out.telemetry)
 
     return run
 

@@ -11,9 +11,15 @@ engine.
 The generic path runs the phases through a spectral backend
 (``kernels/backend.py``); fft_impl="fused" runs the i8 kernels, raw bytes to
 wire bytes.
+
+Under torch.profiler, or after ``utils.SPANS.enable()``, each call is the
+host span ``offline.align``, tagged with the process's index of the call,
+and its phases ``offline.xor`` (the u8 bytes to int8, fused path only),
+``offline.measure`` (A), ``offline.smooth`` (B) and ``offline.apply`` (C).
 """
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import torch
@@ -22,6 +28,10 @@ from coherent_rtlsdr_tpu_torch.kernels.backend import FusedSpectral, get_spectra
 from coherent_rtlsdr_tpu_torch.ops.convert import i8_iq_to_c64, u8_to_c64, u8_to_i8
 from coherent_rtlsdr_tpu_torch.ops.phase import phase_correction_estimate, unit_phasor
 from coherent_rtlsdr_tpu_torch.pipeline.state import PipelineConfig, fused_m
+from coherent_rtlsdr_tpu_torch.utils.telemetry import SPANS
+
+# The index of each align_offline call in the process: its spans' request.
+_calls = itertools.count()
 
 
 @dataclasses.dataclass
@@ -152,18 +162,23 @@ def _align_offline_fused_i8(cfg: PipelineConfig, sp: FusedSpectral, sig_u8: torc
     m = fused_m(cfg)
     T, N = sig_u8.shape[:2]
     L = cfg.block_len
-    raw = u8_to_i8(sig_u8.reshape(T, N, m // 2, 2 * m))
-    ref_raw = u8_to_i8(ref_u8.reshape(T, m // 2, 2 * m))
+    with SPANS.span("offline.xor"):
+        raw = u8_to_i8(sig_u8.reshape(T, N, m // 2, 2 * m))
+        ref_raw = u8_to_i8(ref_u8.reshape(T, m // 2, 2 * m))
 
-    lag, zre, zim, mag, papr, dre, dim = k.measure_i8_spec(raw, ref_raw)
+    with SPANS.span("offline.measure"):
+        lag, zre, zim, mag, papr, dre, dim = k.measure_i8_spec(raw, ref_raw)
 
-    delay = smooth_delays(cfg, lag, mag, smoothing, time)
-    delay = torch.clamp(delay, -cfg.max_delay, cfg.max_delay)
-    pc = _smooth_phases(cfg, unit_phasor(torch.complex(zre, -zim)), mag, smoothing, time=time)
+    with SPANS.span("offline.smooth"):
+        delay = smooth_delays(cfg, lag, mag, smoothing, time)
+        delay = torch.clamp(delay, -cfg.max_delay, cfg.max_delay)
+        pc = _smooth_phases(cfg, unit_phasor(torch.complex(zre, -zim)), mag, smoothing,
+                            time=time)
 
-    wire = k.apply_spec_i8(dre, dim, delay.contiguous(),
-                           pc.real.contiguous(), pc.imag.contiguous())
-    wire_ref = torch.cat([ref_raw[:-1, m // 4:], ref_raw[1:, : m // 4]], dim=1)
+    with SPANS.span("offline.apply"):
+        wire = k.apply_spec_i8(dre, dim, delay.contiguous(),
+                               pc.real.contiguous(), pc.imag.contiguous())
+        wire_ref = torch.cat([ref_raw[:-1, m // 4:], ref_raw[1:, : m // 4]], dim=1)
     return OfflineResult(
         lag=lag, delay=delay, mag=mag, papr=papr, phase=pc,
         wire=wire.reshape(T - 1, N, 2 * L), wire_ref=wire_ref.reshape(T - 1, 2 * L),
@@ -179,21 +194,25 @@ def align_offline(cfg: PipelineConfig, sig_u8: torch.Tensor, ref_u8: torch.Tenso
     smoothers' window axis: the default holds the whole capture; the
     time-sharded runner of ``parallel/sharded.py`` passes the slab of one
     rank with its reductions over the time group."""
-    L = cfg.block_len
-    sp = get_spectral(cfg, 2 * L, sig_u8.device)
-    if isinstance(sp, FusedSpectral):
-        return _align_offline_fused_i8(cfg, sp, sig_u8, ref_u8, smoothing, time)
+    with SPANS.poll(), SPANS.span("offline.align", next(_calls)):
+        L = cfg.block_len
+        sp = get_spectral(cfg, 2 * L, sig_u8.device)
+        if isinstance(sp, FusedSpectral):
+            return _align_offline_fused_i8(cfg, sp, sig_u8, ref_u8, smoothing, time)
 
-    T, N = sig_u8.shape[:2]
-    sig = u8_to_c64(sig_u8.reshape(T, N, L, 2))   # [T, N, L]
-    ref = u8_to_c64(ref_u8.reshape(T, L, 2))      # [T, L]
-    w_ref = torch.cat([ref[:-1], ref[1:]], dim=-1)
-    ctx = sp.prepare(sig, ref)
-    del sig
-    lag, mag, papr = measure_blocks(cfg, sp, ctx)
-    delay = torch.clamp(smooth_delays(cfg, lag, mag, smoothing, time),
-                        -cfg.max_delay, cfg.max_delay)
-    aligned, out_ref, pc = apply_corrections(cfg, sp, ctx, w_ref, delay, mag, smoothing,
-                                             time=time)
-    return OfflineResult(lag=lag, delay=delay, mag=mag, papr=papr, phase=pc,
-                         aligned_c64=aligned, ref_c64=out_ref)
+        T, N = sig_u8.shape[:2]
+        with SPANS.span("offline.measure"):
+            sig = u8_to_c64(sig_u8.reshape(T, N, L, 2))   # [T, N, L]
+            ref = u8_to_c64(ref_u8.reshape(T, L, 2))      # [T, L]
+            w_ref = torch.cat([ref[:-1], ref[1:]], dim=-1)
+            ctx = sp.prepare(sig, ref)
+            del sig
+            lag, mag, papr = measure_blocks(cfg, sp, ctx)
+        with SPANS.span("offline.smooth"):
+            delay = torch.clamp(smooth_delays(cfg, lag, mag, smoothing, time),
+                                -cfg.max_delay, cfg.max_delay)
+        with SPANS.span("offline.apply"):
+            aligned, out_ref, pc = apply_corrections(cfg, sp, ctx, w_ref, delay, mag,
+                                                     smoothing, time=time)
+        return OfflineResult(lag=lag, delay=delay, mag=mag, papr=papr, phase=pc,
+                             aligned_c64=aligned, ref_c64=out_ref)

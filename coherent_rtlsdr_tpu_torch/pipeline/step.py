@@ -15,7 +15,12 @@ Fused path (fft_impl "fused"), raw u8 bytes in, int8 wire bytes out:
 
 where the phase estimate is arg(z) of the measure kernel's correlation
 value (Parseval inner product at the measured lag) and the phase correction
-is folded into the apply kernel's frequency-domain ramp.
+is folded into the apply kernel's frequency-domain ramp. When
+``utils.SPANS`` is recording, the fused step's host work is four spans:
+``step.measure`` (gap check, XOR, the windows, the measure kernels),
+``step.control`` (control law, phase EMA), ``step.apply`` (the apply
+kernel, the reference passthrough) and ``step.telemetry`` (RMS, the
+telemetry and the new state).
 """
 
 from typing import Optional, Tuple
@@ -42,6 +47,7 @@ from coherent_rtlsdr_tpu_torch.pipeline.state import (
     Telemetry,
     fused_m,
 )
+from coherent_rtlsdr_tpu_torch.utils.telemetry import SPANS
 
 
 def as_seq(seq, device) -> torch.Tensor:
@@ -141,45 +147,51 @@ def _step_fused_u8(cfg, state, sig_u8, ref_u8, update_gate, seq=None):
     k = get_fused_kernels(2 * L, dev)
     gate = torch.as_tensor(update_gate, dtype=torch.bool, device=dev)
 
-    seq, gap, new_gaps, meas_ok = _seq_gap(state, seq, gate)
+    with SPANS.span("step.measure"):
+        seq, gap, new_gaps, meas_ok = _seq_gap(state, seq, gate)
 
-    raw_cur = u8_to_i8(sig_u8.reshape(N, m // 2, 2 * m))
-    ref_cur = u8_to_i8(ref_u8.reshape(m // 2, 2 * m))
-    raw = torch.stack([state.hist, raw_cur])           # [2, N, m/2, 2m]
-    ref_raw = torch.stack([state.ref_hist, ref_cur])   # [2, m/2, 2m]
+        raw_cur = u8_to_i8(sig_u8.reshape(N, m // 2, 2 * m))
+        ref_cur = u8_to_i8(ref_u8.reshape(m // 2, 2 * m))
+        raw = torch.stack([state.hist, raw_cur])           # [2, N, m/2, 2m]
+        ref_raw = torch.stack([state.ref_hist, ref_cur])   # [2, m/2, 2m]
 
-    lag_b, zre_b, zim_b, mag_b, papr_b, dre_b, dim_b = k.measure_i8_spec(raw, ref_raw)
-    lag, zre, zim, mag, papr = lag_b[0], zre_b[0], zim_b[0], mag_b[0], papr_b[0]
+        lag_b, zre_b, zim_b, mag_b, papr_b, dre_b, dim_b = k.measure_i8_spec(raw, ref_raw)
+        lag, zre, zim, mag, papr = lag_b[0], zre_b[0], zim_b[0], mag_b[0], papr_b[0]
 
-    new_delay, new_synced = control_update(cfg, state.delay, state.synced, lag, mag, meas_ok)
-    new_synced = new_synced & ~gap
+    with SPANS.span("step.control"):
+        new_delay, new_synced = control_update(cfg, state.delay, state.synced, lag, mag,
+                                               meas_ok)
+        new_synced = new_synced & ~gap
 
-    # pc_inst = conj(z)/|z|, the phase_correction_estimate convention.
-    pc_inst = unit_phasor(torch.complex(zre, -zim))
-    good = meas_ok & (mag >= cfg.min_corr_mag)
-    old_phase = f2c(state.phase)
-    new_phase = torch.where(good, ema_complex(old_phase, pc_inst, alpha=cfg.phase_alpha),
-                            old_phase)
+        # pc_inst = conj(z)/|z|, the phase_correction_estimate convention.
+        pc_inst = unit_phasor(torch.complex(zre, -zim))
+        good = meas_ok & (mag >= cfg.min_corr_mag)
+        old_phase = f2c(state.phase)
+        new_phase = torch.where(good, ema_complex(old_phase, pc_inst, alpha=cfg.phase_alpha),
+                                old_phase)
 
-    wire = k.apply_spec_i8(dre_b, dim_b, new_delay[None],
-                           new_phase.real[None].contiguous(),
-                           new_phase.imag[None].contiguous())[0].reshape(N, 2 * L)
-    # Reference channel: raw passthrough at the same latency (half a block
-    # = m/4 rows), never requantized.
-    wire_ref = torch.cat([state.ref_hist[m // 4:], ref_cur[: m // 4]], dim=0).reshape(2 * L)
+    with SPANS.span("step.apply"):
+        wire = k.apply_spec_i8(dre_b, dim_b, new_delay[None],
+                               new_phase.real[None].contiguous(),
+                               new_phase.imag[None].contiguous())[0].reshape(N, 2 * L)
+        # Reference channel: raw passthrough at the same latency (half a
+        # block = m/4 rows), never requantized.
+        wire_ref = torch.cat([state.ref_hist[m // 4:], ref_cur[: m // 4]],
+                             dim=0).reshape(2 * L)
 
-    # Block RMS from the raw bytes: mean(I^2+Q^2) = 2 mean(byte^2).
-    f = raw_cur.to(torch.float32)
-    rms_val = torch.sqrt(2.0 * torch.mean(f * f, dim=(-2, -1))) * IQ_SCALE
+    with SPANS.span("step.telemetry"):
+        # Block RMS from the raw bytes: mean(I^2+Q^2) = 2 mean(byte^2).
+        f = raw_cur.to(torch.float32)
+        rms_val = torch.sqrt(2.0 * torch.mean(f * f, dim=(-2, -1))) * IQ_SCALE
 
-    phase_f = c2f(new_phase)
-    telemetry = Telemetry(
-        lag=lag, residual=lag - new_delay, mag=mag, papr=papr, phase=phase_f,
-        synced=new_synced, rms=rms_val, gap=gap, gaps=new_gaps,
-    )
-    new_state = PipelineState(
-        delay=new_delay, phase=phase_f, lag=lag, mag=mag, papr=papr, synced=new_synced,
-        hist=raw_cur, ref_hist=ref_cur, block_idx=state.block_idx + 1,
-        last_seq=seq, gaps=new_gaps,
-    )
+        phase_f = c2f(new_phase)
+        telemetry = Telemetry(
+            lag=lag, residual=lag - new_delay, mag=mag, papr=papr, phase=phase_f,
+            synced=new_synced, rms=rms_val, gap=gap, gaps=new_gaps,
+        )
+        new_state = PipelineState(
+            delay=new_delay, phase=phase_f, lag=lag, mag=mag, papr=papr, synced=new_synced,
+            hist=raw_cur, ref_hist=ref_cur, block_idx=state.block_idx + 1,
+            last_seq=seq, gaps=new_gaps,
+        )
     return new_state, BlockOutput(telemetry=telemetry, wire=wire, wire_ref=wire_ref)
