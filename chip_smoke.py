@@ -68,9 +68,11 @@ socket:
      torch.profiler, 21 / 21 synced, contiguous ref seqnums, the last 16
      frames' contents (lag 0, corr >= 0.99, |phase| < 1 deg against
      channel 0), one launch of each fused kernel a block and no plain run,
-     and the first frames bit-equal to ``make_packed_scan_runner``'s on the
-     same bytes; console commands mid-run (status, phase, request rd / re,
-     fcenter, an fs change that forces a resync) and padded hot-plug
+     at depth 1 one CUDA graph of the step captured and replayed a block
+     (``pipeline/graphed.py``), and the first frames bit-equal to
+     ``make_packed_scan_runner``'s on the same bytes; console commands
+     mid-run (status, phase, request rd / re, fcenter, an fs change that
+     forces a resync) and padded hot-plug
      (max_channels = 24, add then del, no runner rebuilt) on a synthetic
      stream rendered on the card; a checkpoint restored into a new server
      that resumes synced with its ref seqnums continuing; the generic
@@ -436,6 +438,16 @@ def launched_only(counts, want, where):
     full = dict.fromkeys(counts, 0) | want
     if counts != full:
         raise AssertionError(f"{where} did not run through the kernels: {counts}, want {full}")
+
+
+def graph_counts(srv, served, depth, where):
+    """A fused server on the card replays its depth-1 step as one CUDA graph
+    (``pipeline/graphed.py``): at depth 1, one capture and a replay a block
+    served; a deeper server's scan runs eagerly. Returns the two counters."""
+    got = dict(graph_captures=srv.graph_captures, graph_replays=srv.graph_replays)
+    if depth == 1 and got != dict(graph_captures=1, graph_replays=served):
+        raise AssertionError(f"{where}: {got} with {served} blocks served")
+    return got
 
 
 def launched_only_kernels(counts, n, where):
@@ -988,6 +1000,7 @@ def phase_server(dev, smi, k, fk):
         add(counts)
         contiguous(pub.ref_seqs, 1, where)
         rec.update(blocks_served=served, launches=counts,
+                   **graph_counts(srv, served, depth, where),
                    frames=check_frames(pub.last, N_CH, where),
                    bit_equal_to_runner=bit_equal(pub.first, want, where))
         out[f"scan_depth_{depth}"] = rec
@@ -1997,6 +2010,7 @@ def phase19_server(dev, smi, cfg, k):
             launches[name] += v
         contiguous(pub.ref_seqs, 1, where)
         rec.update(blocks_served=served, launches=counts,
+                   **graph_counts(srv, served, depth, where),
                    frames=check_frames(pub.last, N_CH, where, block_len=L19),
                    bit_equal_to_runner=bit_equal(pub.first, want, where))
         out[f"scan_depth_{depth}"] = rec

@@ -7,7 +7,9 @@ Loop per batch of blocks:
   2. pad them to the runner's width, stage them in pinned host memory and
      upload them without blocking;
   3. run the packed step (one block) or the packed scan runner (K blocks)
-     of ``pipeline/drivers.py`` on the device;
+     of ``pipeline/drivers.py`` on the device; on the card, on the fused
+     path and without a mesh, the step replays as one CUDA graph
+     (``pipeline/graphed.py``, ``step_is_graphed``);
   4. hand the outputs to the publisher worker, which copies them to the
      host on a side stream and publishes the frames on :5555 / :5557;
   5. drain the control socket and apply console commands;
@@ -19,7 +21,8 @@ host spans (``utils/telemetry.py:SpanRecorder``), each tagged with the
 server's global index of its block (the first of a batch):
 ``server.block`` is one iteration, holding ``server.source`` (1),
 ``server.stage`` (2), ``server.dispatch`` (3: the step, whose own spans
-are ``step.*`` and ``kernels.*``), ``server.queue_wait`` (the hand-over
+are ``step.*`` and ``kernels.*``, or the graph's replay
+``kernels.step_graph`` alone), ``server.queue_wait`` (the hand-over
 to the worker, waiting while two batches are queued) and
 ``server.control`` (5 and 6). The worker's ``server.publish_batch`` holds
 ``server.fetch`` (its wait for the copy, and so for the card, is
@@ -44,6 +47,7 @@ The publisher is the native C++ packetizer (``native.py``) where it
 builds and finds libzmq, else pyzmq's ``FramePublisher``.
 """
 
+import collections
 import dataclasses
 import logging
 import os
@@ -59,6 +63,7 @@ from coherent_rtlsdr_tpu_torch import constants
 from coherent_rtlsdr_tpu_torch.io.console import ConsoleDispatcher
 from coherent_rtlsdr_tpu_torch.parallel.sharded import make_sharded_server_runners
 from coherent_rtlsdr_tpu_torch.pipeline.drivers import make_packed_scan_runner, make_packed_step
+from coherent_rtlsdr_tpu_torch.pipeline.graphed import GraphedStep
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
     PPACK_COLS,
     TELEMETRY_COLS,
@@ -96,6 +101,15 @@ class _LogRing(logging.Handler):
 def _os_picks_port(addr: str) -> bool:
     """A TCP address whose port the OS picks at bind time (``:*``, ``:!``)."""
     return addr.startswith("tcp://") and addr.rsplit(":", 1)[-1] in ("*", "!")
+
+
+def step_is_graphed(cfg: PipelineConfig, device) -> bool:
+    """Whether the depth-1 step of a server without a mesh replays as one
+    CUDA graph (``pipeline/graphed.py``): exactly on the card and on the
+    fused path. Elsewhere the step runs eagerly: the CPU has no graphs, and
+    the generic backends are not captured (nor are the mesh runners, which
+    ``_build_runners`` never passes here)."""
+    return torch.device(device).type == "cuda" and cfg.fft_impl == "fused"
 
 
 def _make_publisher(data_addr: str, debug_addr: str, header: bool):
@@ -157,6 +171,8 @@ class CoherentServer:
         self._shards = None
         self.scan_depth = int(scan_depth)
         self.n_runner_builds = 0
+        # "captures" / "replays" of the graphed step, over every runner build
+        self._graph_counts = collections.Counter()
         # On a mesh: checks it, and posts the config to the other ranks.
         self._build_runners(cfg)
         if mesh is None:
@@ -253,14 +269,30 @@ class CoherentServer:
 
         threading.Thread(target=drain, daemon=True).start()
 
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs of the depth-1 step captured so far: one a runner
+        build whose step ran (``step_is_graphed``), captured at its first
+        block."""
+        return self._graph_counts["captures"]
+
+    @property
+    def graph_replays(self) -> int:
+        """Blocks served by replaying a captured step."""
+        return self._graph_counts["replays"]
+
     def _build_runners(self, cfg: PipelineConfig) -> None:
         """The packed step, and the packed scan runner when scan_depth > 1
         (``n_runner_builds`` counts the builds: a padded hot-plug makes
-        none); on a mesh, every rank's."""
+        none); on a mesh, every rank's. ``make_packed_step`` is looked up
+        here by its module-level name, and its step is what the graph
+        captures."""
         self.cfg = cfg
         self.n_runner_builds += 1
         if self.mesh is None:
             self._step = make_packed_step(cfg)
+            if step_is_graphed(cfg, self.device):
+                self._step = GraphedStep(self._step, cfg, self.device, self._graph_counts)
             self._scan = make_packed_scan_runner(cfg) if self.scan_depth > 1 else None
             return
         if self._shards is None:
