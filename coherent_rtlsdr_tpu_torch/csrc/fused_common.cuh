@@ -89,10 +89,32 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 template <int M>
 constexpr int kTcThreads = 2 * M;
 
+// Offset of element (r, c) of an m x m bf16 plane tiled in 8 x 8 core
+// matrices of 128 contiguous bytes: tile (r / 8, c / 8) at (r / 8) (m / 8)
+// + c / 8, its row r % 8 eight contiguous columns. wgmma reads it without
+// swizzle, K-major when the rows are n (the next 8 k 128 bytes on, the next
+// 8 rows m / 8 x 128 bytes on) or N-major when they are k (the next 8 n 128
+// bytes on, the next 8 k m / 8 x 128), and ldmatrix's 8 x 8 matrices are
+// each 128 contiguous bytes of it (no bank conflict).
+template <int M>
+__device__ __forceinline__ int tiled(int r, int c) {
+  return ((r >> 3) * (M / 8) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+// The offset of a plane's 16-byte chunk at (r, c), c % 8 = 0: tiled
+// (`tiled`) or swizzled for ldmatrix (tc::swz).
+template <int M, bool TILED>
+__device__ __forceinline__ int plane_offset(int r, int c) {
+  if constexpr (TILED)
+    return tiled<M>(r, c);
+  else
+    return tc::swz<M>(r, c);
+}
+
 // F (interleaved float32 [m, m], bf16-exact values, so the conversion is
-// exact) into swizzled bf16 re / im planes at `tab` (2 m^2 elements), by the
-// NT threads of the CTA.
-template <int M, int NT = kTcThreads<M>>
+// exact) into bf16 re / im planes at `tab` (2 m^2 elements; plane_offset:
+// swizzled, or tiled), by the NT threads of the CTA.
+template <int M, int NT = kTcThreads<M>, bool TILED = false>
 __device__ __forceinline__ void load_table(const float2* __restrict__ F, __nv_bfloat16* tab) {
   constexpr int kChunks = M * M / 8;  // 8 elements, 16 bytes of a plane
   for (int q = threadIdx.x; q < kChunks; q += NT) {
@@ -106,7 +128,7 @@ __device__ __forceinline__ void load_table(const float2* __restrict__ F, __nv_bf
       re[i] = tc::pack_bf16(v.x, v.z);
       im[i] = tc::pack_bf16(v.y, v.w);
     }
-    const int o = tc::swz<M>(r, c);
+    const int o = plane_offset<M, TILED>(r, c);
     *reinterpret_cast<uint4*>(tab + o) = make_uint4(re[0], re[1], re[2], re[3]);
     *reinterpret_cast<uint4*>(tab + M * M + o) = make_uint4(im[0], im[1], im[2], im[3]);
   }
@@ -117,14 +139,34 @@ __device__ __forceinline__ float sbyte(int x, int k) {
   return static_cast<float>(static_cast<signed char>(x >> (8 * k)));
 }
 
+// Vector q (16 bytes: samples 8q..8q+7) of an int8 window into its place in
+// the bf16 re / im planes at `win` (plane_offset): row 8q / m, columns from
+// (8q) % m, one 16-byte chunk of each plane; A = bf16(float(i8) * (1/127)),
+// as the plain version rounds. Word j holds I Q I Q of samples 2j, 2j + 1.
+template <int M, bool TILED = false>
+__device__ __forceinline__ void store_i8_vector(int4 v, int q, __nv_bfloat16* win) {
+  constexpr float kScale = static_cast<float>(1.0 / 127.0);
+  const int s = 8 * q;
+  const int words[4] = {v.x, v.y, v.z, v.w};
+  uint32_t re[4], im[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int x = words[j];
+    re[j] = tc::pack_bf16(sbyte(x, 0) * kScale, sbyte(x, 2) * kScale);
+    im[j] = tc::pack_bf16(sbyte(x, 1) * kScale, sbyte(x, 3) * kScale);
+  }
+  const int o = plane_offset<M, TILED>(s / M, s % M);
+  *reinterpret_cast<uint4*>(win + o) = make_uint4(re[0], re[1], re[2], re[3]);
+  *reinterpret_cast<uint4*>(win + M * M + o) = make_uint4(im[0], im[1], im[2], im[3]);
+}
+
 // The window of the i8 path into swizzled bf16 re / im planes at `win` (2 m^2
 // elements): rows 0..m/2-1 from the int8 block `top`, rows m/2..m-1 from
-// `top + next`; A = bf16(float(i8) * (1/127)), as the plain version rounds.
-// 16 bytes (8 samples) a load, all of a thread's loads in flight at once.
+// `top + next` (store_i8_vector). 16 bytes (8 samples) a load, all of a
+// thread's loads in flight at once.
 template <int M>
 __device__ __forceinline__ void load_window_i8(const int8_t* __restrict__ top, size_t next,
                                                __nv_bfloat16* win) {
-  constexpr float kScale = static_cast<float>(1.0 / 127.0);
   constexpr int kThreads = kTcThreads<M>;
   constexpr int kVec = M * M / 16;  // vectors a half-window (m*m contiguous bytes)
   constexpr int kSteps = 2 * kVec / kThreads;
@@ -137,31 +179,16 @@ __device__ __forceinline__ void load_window_i8(const int8_t* __restrict__ top, s
     v[u] = __ldg(reinterpret_cast<const int4*>(top + half * next) + (w - half * kVec));
   }
 #pragma unroll
-  for (int u = 0; u < kSteps; ++u) {
-    // Vector w holds samples 8w..8w+7 of the window: row 8w / m, columns
-    // from (8w) % m, one 16-byte chunk of each plane.
-    // Word j holds I Q I Q of samples 2j, 2j + 1.
-    const int s = 8 * (threadIdx.x + u * kThreads);
-    const int words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-    uint32_t re[4], im[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int x = words[j];
-      re[j] = tc::pack_bf16(sbyte(x, 0) * kScale, sbyte(x, 2) * kScale);
-      im[j] = tc::pack_bf16(sbyte(x, 1) * kScale, sbyte(x, 3) * kScale);
-    }
-    const int o = tc::swz<M>(s / M, s % M);
-    *reinterpret_cast<uint4*>(win + o) = make_uint4(re[0], re[1], re[2], re[3]);
-    *reinterpret_cast<uint4*>(win + M * M + o) = make_uint4(im[0], im[1], im[2], im[3]);
-  }
+  for (int u = 0; u < kSteps; ++u) store_i8_vector<M>(v[u], threadIdx.x + u * kThreads, win);
 }
 
-// The window of the float path into swizzled bf16 re / im planes at `win`:
-// rows 0..m/2-1 from the block planes `re`, `im` (bf16 [m/2, m]), rows
-// m/2..m-1 from `re + next`, `im + next`, the same channel's next block.
-// The planes are bf16 already, so each 16-byte vector (8 elements) is
-// stored as it is loaded; all of a thread's loads in flight at once.
-template <int M>
+// The window of the float path into bf16 re / im planes at `win`
+// (plane_offset): rows 0..m/2-1 from the block planes `re`, `im` (bf16
+// [m/2, m]), rows m/2..m-1 from `re + next`, `im + next`, the same
+// channel's next block. The planes are bf16 already, so each 16-byte vector
+// (8 elements) is stored as it is loaded; all of a thread's loads in flight
+// at once.
+template <int M, bool TILED = false>
 __device__ __forceinline__ void load_window_planes(const __nv_bfloat16* __restrict__ re,
                                                    const __nv_bfloat16* __restrict__ im,
                                                    size_t next, __nv_bfloat16* win) {
@@ -182,7 +209,7 @@ __device__ __forceinline__ void load_window_planes(const __nv_bfloat16* __restri
     // Vector w holds elements 8w..8w+7 of the window: row 8w / m, columns
     // from (8w) % m, one 16-byte chunk of each plane.
     const int e = 8 * (threadIdx.x + u * kThreads);
-    const int o = tc::swz<M>(e / M, e % M);
+    const int o = plane_offset<M, TILED>(e / M, e % M);
     *reinterpret_cast<uint4*>(win + o) = vr[u];
     *reinterpret_cast<uint4*>(win + M * M + o) = vi[u];
   }

@@ -3,7 +3,8 @@
 // fused_common.cuh): bf16 matrices in swizzled shared memory, ldmatrix
 // fragment loads, the mma.sync m16n8k16 bf16 x bf16 -> f32 product, the
 // twiddle, the complex products of a warp's 16-row strip, the warpgroup
-// product wgmma (the m = 256 cluster kernels, fused_cluster.cuh), named
+// product wgmma (the m = 256 cluster kernels, fused_cluster.cuh, and the
+// channel measures at m = 64 / 128, fused_measure.cu), named
 // barriers between the warps of a warp-specialised block, and the
 // persistent grid.
 //
@@ -248,8 +249,10 @@ __device__ __forceinline__ void strip_product_a(const uint32_t (&cre)[M / 16][4]
 // its 16 rows, the mma.sync A fragment above) by a 16 x N bf16 B read from
 // shared memory through a descriptor, into 64 x N float32 accumulators
 // (each warp its 16 rows: d[j][e] is the mma.sync C fragment of n8 tile j).
-// SCALE_A = -1 negates A exactly. The products are asynchronous: fence
-// before the first after the registers were written, commit, then wait.
+// SCALE_A = -1 negates A exactly; TRANS_B = 1 reads B stored N-major (n
+// contiguous: the core matrices 8 k rows of 8 n) instead of K-major. The
+// products are asynchronous: fence before the first after the registers
+// were written, commit, then wait.
 
 // The descriptor of a B operand stored K-major without swizzle: 8 x 8 core
 // matrices of 128 contiguous bytes, `lbo` bytes from a core matrix to its
@@ -272,14 +275,14 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
 }
 
-template <int SCALE_A>
+template <int SCALE_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, %37, 1, 0;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, %37, 1, %39;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
         "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
         "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
@@ -287,30 +290,30 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
         "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_A), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_A), "r"(1), "n"(TRANS_B));
 }
 
-template <int SCALE_A>
+template <int SCALE_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_n32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, %21, 1, 0;\n}\n"
+      "{%16, %17, %18, %19}, %20, p, %21, 1, %23;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
         "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
         "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
         "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_A), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_A), "r"(1), "n"(TRANS_B));
 }
 
-template <int N, int SCALE_A>
+template <int N, int SCALE_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b) {
   static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
   if constexpr (N == 64)
-    wgmma_n64<SCALE_A>(d, a, b);
+    wgmma_n64<SCALE_A, TRANS_B>(d, a, b);
   else
-    wgmma_n32<SCALE_A>(d, a, b);
+    wgmma_n32<SCALE_A, TRANS_B>(d, a, b);
 }
 
 // Named barriers (id 1..15; 0 is __syncthreads): `count` threads, a multiple

@@ -91,16 +91,25 @@ def test_kernels_match_plain_on_card(kind, m, cuda_device):
     assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
 
 
+# (T, N) of the measure kernels' test shapes at m: a streaming step of 21
+# channels (the server's block: one window a CTA of the persistent grid), a
+# single channel, 26 x 21 windows (no whole wave of CTAs on 132 SMs at any
+# m), an offline call of 2,097,152 samples a channel (T = 256 at m = 128:
+# ~41 windows a CTA) and 7 x 19 = 133 windows, one more than the 132 CTAs
+# of the persistent grid at m = 128.
+MEASURE_SHAPES = {"stream": lambda m: (2, 21), "one_channel": lambda m: (3, 1),
+                  "ragged": lambda m: (27, 21), "offline": lambda m: (2 ** 22 // (m * m), 21),
+                  "odd": lambda m: (8, 19)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [64, 128, 256])
-@pytest.mark.parametrize("shape", ["stream", "one_channel", "ragged"])
+@pytest.mark.parametrize("shape", list(MEASURE_SHAPES))
 def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_device):
     """The three i8 measure entries (reference, channels with and without the
-    D store) against their plain versions on correlated bytes: one window of
-    21 channels (a streaming step), a single channel, and 26 x 21 windows,
-    which fill no whole wave of CTAs on 132 SMs at any m (at m = 256 a
-    window is a cluster of four CTAs)."""
-    t, n = {"stream": (2, 21), "one_channel": (3, 1), "ragged": (27, 21)}[shape]
+    D store) against their plain versions on correlated bytes at the shapes
+    of MEASURE_SHAPES (at m = 256 a window is a cluster of four CTAs)."""
+    t, n = MEASURE_SHAPES[shape](m)
     k = FusedPipelineKernels(m * m, cuda_device)
     raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
     r_got, e_got = k.measure_ref(ref_raw)
@@ -128,6 +137,41 @@ def test_measure_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_d
             assert ((a - b).abs() <= 1e-3 * b.abs()).all()
     for a, b in zip(spec[5:], spec_plain[5:]):
         assert (_ulp_apart(a, b) > 1).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128, 256])
+@pytest.mark.parametrize("shape", ["stream", "odd"])
+def test_measure_kernels_replay_in_cuda_graph_on_card(shape, m, cuda_device):
+    """Both i8 channel measures captured in a CUDA graph, as the server's
+    graphed step captures them, then replayed on other bytes in the
+    captured input: the outputs of the eager launches on those bytes, bit
+    for bit (the persistent grid's fixed schedule keeps no state between
+    launches)."""
+    t, n = MEASURE_SHAPES[shape](m)
+    k = FusedPipelineKernels(m * m, cuda_device)
+    raw, ref_raw = _blocks("correlated", m, cuda_device, t, n)
+    R, eref = k.measure_ref(ref_raw)
+    static = raw.clone()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        k.measure_spec(static, R, eref)
+        fused_cuda.measure_i8(k, static, R, eref)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        spec = k.measure_spec(static, R, eref)
+        rec = fused_cuda.measure_i8(k, static, R, eref)
+    other = torch.roll(raw, 1, dims=1).contiguous()   # each channel's bytes on another's place
+    static.copy_(other)
+    graph.replay()
+    want_spec = k.measure_spec(other, R, eref)
+    want_rec = fused_cuda.measure_i8(k, other, R, eref)
+    torch.cuda.synchronize()
+    for got, want in zip(spec + rec, want_spec + want_rec):
+        assert torch.equal(got, want)
+    assert not torch.equal(spec[0], k.measure_spec(raw, R, eref)[0])
 
 
 @pytest.mark.cuda
