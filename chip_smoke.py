@@ -925,7 +925,7 @@ def host_breakdown(srv, n_blocks):
         raise AssertionError(f"host_breakdown: {summary['dropped']} spans dropped")
     parts = dict(source="server.source", stage="server.stage", dispatch="server.dispatch",
                  fetch="server.fetch", publish="server.publish")
-    if getattr(srv, "_shards", None) is not None:
+    if srv.mesh is not None:
         parts.update(mesh_header="mesh.header", mesh_scatter="mesh.scatter",
                      mesh_gather="mesh.gather")
     spans = {part: summary["spans"].get(name, dict(total_ms=0.0, max_ms=0.0))
@@ -2766,7 +2766,7 @@ def op_breakdown(srv, n_blocks, top=16):
 
 
 def runner_call_ms(srvs, cap, rounds=RUNNER_ROUNDS, calls=RUNNER_CALLS):
-    """The host ms of one depth-1 runner call (``srv._step``) of each
+    """The host ms of one depth-1 runner call (``srv._runners.run``) of each
     server of ``srvs`` (a dict), alone: no loop and no publisher thread.
     In turns, ``rounds`` times: ``calls`` calls on one staged block of the
     capture, timed to the host's return from the last (few enough that the
@@ -2779,11 +2779,10 @@ def runner_call_ms(srvs, cap, rounds=RUNNER_ROUNDS, calls=RUNNER_CALLS):
         for side in list(srvs)[:: 1 if i % 2 == 0 else -1]:
             srv = srvs[side]
             sig, ref, seq = srv._stage(blk)
-            gate = True if srv._shards is not None else torch.tensor(True, device=srv.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(calls):
-                srv._step(srv._st, sig[0], ref[0], gate, seq[0])
+                srv._runners.run(srv._st, sig, ref, True, seq)
             out[side].append((time.perf_counter() - t0) * 1e3 / calls)
             torch.cuda.synchronize()
     return {side: dict(ms_per_call=v, median=statistics.median(v)) for side, v in out.items()}

@@ -6,10 +6,12 @@ Loop per batch of blocks:
   1. pull the next block(s) from the source (numpy, host memory);
   2. pad them to the runner's width, stage them in pinned host memory and
      upload them without blocking;
-  3. run the packed step (one block) or the packed scan runner (K blocks)
-     of ``pipeline/drivers.py`` on the device; on the card, on the fused
-     path and without a mesh, the step replays as one CUDA graph
-     (``pipeline/graphed.py``, ``step_is_graphed``);
+  3. run them through the server's runners (``run``): the packed step (one
+     block) or the packed scan runner (K blocks) of ``pipeline/drivers.py``
+     (``run_blocks``), on the device without a mesh
+     (:class:`LocalServerRunners`, whose step replays as one CUDA graph on
+     the card on the fused path: ``pipeline/graphed.py``,
+     ``step_is_graphed``) or over the ranks of a mesh;
   4. hand the outputs to the publisher worker, which copies them to the
      host on a side stream and publishes the frames on :5555 / :5557;
   5. drain the control socket and apply console commands;
@@ -35,9 +37,9 @@ Calibration persists across restarts (``save_state`` / ``restore_state``,
 the JAX package's npz layout).
 
 On a (1, S) channel mesh of ``torch.distributed`` ranks (``mesh=``, the
-process group's rank 0) the loop is the same: step 3 runs
-``parallel/sharded.py:make_sharded_server_runners``, which scatters the
-blocks over the ranks and gathers their outputs, and every read or write
+process group's rank 0) the loop is the same: the runners are
+``parallel/sharded.py:make_sharded_server_runners``'s, which scatter the
+blocks over the ranks and gather their outputs, and every read or write
 of the state is one collective operation in loop order. Only this rank
 touches the source, the sockets and the checkpoint; the other ranks run
 ``serve_follower`` until ``close()``. Hot-plug on a mesh needs
@@ -62,7 +64,11 @@ import torch
 from coherent_rtlsdr_tpu_torch import constants
 from coherent_rtlsdr_tpu_torch.io.console import ConsoleDispatcher
 from coherent_rtlsdr_tpu_torch.parallel.sharded import make_sharded_server_runners
-from coherent_rtlsdr_tpu_torch.pipeline.drivers import make_packed_scan_runner, make_packed_step
+from coherent_rtlsdr_tpu_torch.pipeline.drivers import (
+    make_packed_scan_runner,
+    make_packed_step,
+    run_blocks,
+)
 from coherent_rtlsdr_tpu_torch.pipeline.graphed import GraphedStep
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
     PPACK_COLS,
@@ -108,8 +114,61 @@ def step_is_graphed(cfg: PipelineConfig, device) -> bool:
     CUDA graph (``pipeline/graphed.py``): exactly on the card and on the
     fused path. Elsewhere the step runs eagerly: the CPU has no graphs, and
     the generic backends are not captured (nor are the mesh runners, which
-    ``_build_runners`` never passes here)."""
+    never ask)."""
     return torch.device(device).type == "cuda" and cfg.fft_impl == "fused"
+
+
+class LocalServerRunners:
+    """The server's runners without a mesh, with the interface of
+    ``parallel/sharded.py:ShardedServerRunners``: ``run`` takes K >= 1
+    staged blocks and a Python bool gate, and returns ``(pstate, wire [K,
+    ...], wire_ref [K, ...], telem [K, N, 10])``; ``init_pstate``,
+    ``get_state`` / ``set_state`` (the packed state for and from
+    ``pipeline/state.py:unpack_state_host`` / ``pack_state_host``),
+    ``get_delays``, ``rebuild``, ``close``; ``stage_device``, where the
+    loop stages; ``n_runner_builds`` and ``graph_counts``.
+
+    Each build makes the packed step and the packed scan runner
+    (``run_blocks`` picks one by K). ``make_packed_step`` is looked up by
+    its module-level name at every build, and the step is wrapped in
+    ``GraphedStep`` where ``step_is_graphed``; ``graph_counts`` holds the
+    graphs' ``"captures"`` and ``"replays"`` over every build. The gate is
+    one device bool tensor a value, so the step copies nothing for it."""
+
+    def __init__(self, cfg: PipelineConfig, device):
+        self.device = self.stage_device = torch.device(device)
+        self.n_runner_builds = 0
+        self.graph_counts = collections.Counter()
+        self._gates = {v: torch.tensor(v, device=self.device) for v in (False, True)}
+        self.rebuild(cfg)
+
+    def rebuild(self, cfg: PipelineConfig) -> None:
+        self.cfg = cfg
+        self._step = make_packed_step(cfg)
+        if step_is_graphed(cfg, self.device):
+            self._step = GraphedStep(self._step, cfg, self.device, self.graph_counts)
+        self._scan = make_packed_scan_runner(cfg)
+        self.n_runner_builds += 1
+
+    def run(self, pstate, sigs, refs, gate: bool, seqs):
+        return run_blocks(self._step, self._scan, pstate, sigs, refs, self._gates[bool(gate)],
+                          seqs)
+
+    def init_pstate(self):
+        return pack_state(init_state(self.cfg, self.device))   # raises without a card
+
+    def get_state(self, pstate):
+        return pstate
+
+    def set_state(self, pstate, host_pstate):
+        return tuple(t.to(self.device) for t in host_pstate)
+
+    def get_delays(self, pstate):
+        """The delay column alone, fetched (and waited for)."""
+        return pstate[0][:, PPACK_COLS.index("delay")].cpu().numpy()
+
+    def close(self) -> None:
+        pass
 
 
 def _make_publisher(data_addr: str, debug_addr: str, header: bool):
@@ -168,19 +227,12 @@ class CoherentServer:
             cfg = dataclasses.replace(cfg, n_channels=max_channels)
         self.device = torch.device(device)
         self.mesh = mesh
-        self._shards = None
-        self.scan_depth = int(scan_depth)
-        self.n_runner_builds = 0
-        # "captures" / "replays" of the graphed step, over every runner build
-        self._graph_counts = collections.Counter()
+        self.scan_depth = max(1, int(scan_depth))
+        self.cfg = cfg
         # On a mesh: checks it, and posts the config to the other ranks.
-        self._build_runners(cfg)
-        if mesh is None:
-            self._st = pack_state(init_state(cfg, self.device))   # raises without a card
-            self._stage_device = self.device
-        else:
-            self._st = self._shards.init_pstate()   # this rank's channel rows
-            self._stage_device = self._shards.comm_device
+        self._runners = (LocalServerRunners(cfg, self.device) if mesh is None
+                         else make_sharded_server_runners(cfg, mesh, self.device))
+        self._st = self._runners.init_pstate()   # on a mesh, this rank's channel rows
         # The publisher worker copies outputs to the host on its own stream,
         # so the fetch of batch k overlaps the dispatch of batch k+1.
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
@@ -230,22 +282,11 @@ class CoherentServer:
 
     @property
     def state(self) -> PipelineState:
-        st = self._st if self._shards is None else self._shards.get_state(self._st)
-        return unpack_state_host(*st)
+        return unpack_state_host(*self._runners.get_state(self._st))
 
     @state.setter
     def state(self, s: PipelineState) -> None:
-        if self._shards is None:
-            self._st = pack_state_host(s, self.device)
-        else:
-            self._st = self._shards.set_state(self._st, pack_state_host(s, "cpu"))
-
-    def _delays_host(self) -> np.ndarray:
-        """The applied per-channel delays: one column of the small packed
-        tensor, fetched (and waited for) alone."""
-        if self._shards is not None:
-            return self._shards.get_delays(self._st)
-        return self._st[0][:, PPACK_COLS.index("delay")].cpu().numpy()
+        self._st = self._runners.set_state(self._st, pack_state_host(s, "cpu"))
 
     def _block_idx_host(self) -> int:
         return int(self._st[1][0, 3].item())
@@ -274,33 +315,22 @@ class CoherentServer:
         """CUDA graphs of the depth-1 step captured so far: one a runner
         build whose step ran (``step_is_graphed``), captured at its first
         block."""
-        return self._graph_counts["captures"]
+        return self._runners.graph_counts["captures"]
 
     @property
     def graph_replays(self) -> int:
         """Blocks served by replaying a captured step."""
-        return self._graph_counts["replays"]
+        return self._runners.graph_counts["replays"]
+
+    @property
+    def n_runner_builds(self) -> int:
+        """Runner builds (a padded hot-plug makes none); on a mesh, every
+        rank's."""
+        return self._runners.n_runner_builds
 
     def _build_runners(self, cfg: PipelineConfig) -> None:
-        """The packed step, and the packed scan runner when scan_depth > 1
-        (``n_runner_builds`` counts the builds: a padded hot-plug makes
-        none); on a mesh, every rank's. ``make_packed_step`` is looked up
-        here by its module-level name, and its step is what the graph
-        captures."""
         self.cfg = cfg
-        self.n_runner_builds += 1
-        if self.mesh is None:
-            self._step = make_packed_step(cfg)
-            if step_is_graphed(cfg, self.device):
-                self._step = GraphedStep(self._step, cfg, self.device, self._graph_counts)
-            self._scan = make_packed_scan_runner(cfg) if self.scan_depth > 1 else None
-            return
-        if self._shards is None:
-            self._shards = make_sharded_server_runners(cfg, self.mesh, self.scan_depth,
-                                                       self.device)
-        else:
-            self._shards.rebuild(cfg)
-        self._step, self._scan = self._shards.step, self._shards.scan
+        self._runners.rebuild(cfg)
 
     # ---- staging (channel padding, host -> device) -----------------------
 
@@ -328,7 +358,8 @@ class CoherentServer:
             r[i] = ref_u8.reshape(r.shape[1:])
             q[i, :n] = seqnums
             q[i, n:] = (self._blocks_done + i + 1) & 0xFFFFFFFF
-        return tuple(t.to(self._stage_device, non_blocking=True) for t in (sigs, refs, seqs))
+        dev = self._runners.stage_device
+        return tuple(t.to(dev, non_blocking=True) for t in (sigs, refs, seqs))
 
     def _outputs_ready(self):
         """An event after the outputs just dispatched (None on the CPU)."""
@@ -428,8 +459,9 @@ class CoherentServer:
     def run(self, max_blocks: Optional[int] = None) -> int:
         """Returns the number of blocks published.
 
-        With ``scan_depth > 1`` the loop gathers that many source blocks and
-        runs them through one call of the packed scan runner.
+        Each iteration gathers ``scan_depth`` source blocks (fewer at the
+        end of the source or of ``max_blocks``), stages them once and runs
+        them through one call of the runners.
 
         Publishing is pipelined: a worker thread fetches batch k's outputs
         and publishes its frames while the main thread gathers, uploads and
@@ -470,7 +502,6 @@ class CoherentServer:
             return False
 
         dispatched = 0
-        gate_cache = (None, None)
         try:
             while not self._do_exit and not pub_err:
                 if max_blocks is not None and dispatched >= max_blocks:
@@ -483,19 +514,9 @@ class CoherentServer:
                         self.state = dataclasses.replace(s, synced=np.zeros_like(s.synced))
                         self._resync_requested = False
 
-                    # one device bool tensor per gate value: the step then
-                    # copies nothing for it (on a mesh the bool itself, which
-                    # travels in the control header)
-                    if gate_cache[0] != self.refnoise_enabled:
-                        v = self.refnoise_enabled
-                        gate_cache = (v, v if self._shards is not None
-                                      else torch.tensor(v, device=self.device))
-                    gate = gate_cache[1]
-                    k = 1
-                    if self._scan is not None:
-                        k = self.scan_depth
-                        if max_blocks is not None:
-                            k = min(k, max_blocks - dispatched)
+                    k = self.scan_depth
+                    if max_blocks is not None:
+                        k = min(k, max_blocks - dispatched)
                     blocks = []
                     with SPANS.span("server.source"):
                         for _ in range(k):
@@ -506,50 +527,21 @@ class CoherentServer:
                     if not blocks:
                         break
 
-                    na = self.n_active
-                    n_jit = self.cfg.n_channels
-                    if self._scan is not None and len(blocks) > 1:
-                        with SPANS.span("server.stage"):
-                            sigs, refs, seqs = self._stage(blocks)
-                        with SPANS.span("server.dispatch"):
-                            self._st, (wire_sigs, wire_refs), telem = self._scan(
-                                self._st, sigs, refs, gate, seqs)
-                            ready = self._outputs_ready()
-                        with SPANS.span("server.queue_wait"):
-                            queued = qput(dict(
-                                wire_sigs=wire_sigs, wire_refs=wire_refs, telem=telem,
-                                ready=ready, seqnums=[b[2] for b in blocks], na=na, base=base,
-                                n_jit=n_jit, L=self.cfg.block_len,
-                                request=self._blocks_done, record=record,
-                            ))
-                        if not queued:
-                            break
-                    else:
-                        enqueued = 0
-                        for j, blk in enumerate(blocks):
-                            with SPANS.span("server.stage"):
-                                sig, ref, seq = self._stage([blk])
-                            with SPANS.span("server.dispatch"):
-                                self._st, wire_sig, wire_ref, telem = self._step(
-                                    self._st, sig[0], ref[0], gate, seq[0])
-                                ready = self._outputs_ready()
-                            with SPANS.span("server.queue_wait"):
-                                queued = qput(dict(
-                                    wire_sigs=wire_sig, wire_refs=wire_ref, telem=telem,
-                                    ready=ready, seqnums=[blk[2]], na=na, base=base + j,
-                                    n_jit=n_jit, L=self.cfg.block_len,
-                                    request=self._blocks_done + j, record=record,
-                                ))
-                            if not queued:
-                                break
-                            enqueued += 1
-                        if enqueued < len(blocks):
-                            # publisher died mid-batch: count only what was
-                            # enqueued, then leave on pub_err
-                            base += enqueued
-                            dispatched += enqueued
-                            self._blocks_done += enqueued
-                            break
+                    with SPANS.span("server.stage"):
+                        sigs, refs, seqs = self._stage(blocks)
+                    with SPANS.span("server.dispatch"):
+                        self._st, wire_sigs, wire_refs, telem = self._runners.run(
+                            self._st, sigs, refs, self.refnoise_enabled, seqs)
+                        ready = self._outputs_ready()
+                    with SPANS.span("server.queue_wait"):
+                        queued = qput(dict(
+                            wire_sigs=wire_sigs, wire_refs=wire_refs, telem=telem,
+                            ready=ready, seqnums=[b[2] for b in blocks], na=self.n_active,
+                            base=base, n_jit=self.cfg.n_channels, L=self.cfg.block_len,
+                            request=self._blocks_done, record=record,
+                        ))
+                    if not queued:
+                        break   # the worker died: its error is raised below
                     base += len(blocks)
                     dispatched += len(blocks)
                     self._blocks_done += len(blocks)
@@ -562,7 +554,8 @@ class CoherentServer:
                             now = time.monotonic()
                             if now >= self._hw_relief_next:
                                 self._hw_relief_next = now + 0.25
-                                self.hw_relief.tick(self._delays_host()[: self.n_active])
+                                delays = self._runners.get_delays(self._st)
+                                self.hw_relief.tick(delays[: self.n_active])
         finally:
             if pub_err:
                 pubq.queue.clear()  # the worker is gone; nothing drains these
@@ -590,7 +583,7 @@ class CoherentServer:
         """Fetch one dispatched batch's outputs and publish every frame
         (runs on the publisher worker). Frame layout: channel 0 is the
         reference; the phases go out on the debug port. ``telem`` is the
-        packed [.., N, 10] tensor (state.TELEMETRY_COLS). Returns the
+        packed [K, N, 10] tensor (state.TELEMETRY_COLS). Returns the
         frames published.
 
         With ``record`` (the loop's span flag when it dispatched the batch)
@@ -833,5 +826,4 @@ class CoherentServer:
         """On a mesh, release the other ranks (they return from
         ``serve_follower``): call once, after the last ``run()``, whose
         exit has saved the checkpoint."""
-        if self._shards is not None:
-            self._shards.close()
+        self._runners.close()

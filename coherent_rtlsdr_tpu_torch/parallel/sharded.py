@@ -26,6 +26,7 @@ which owns the source and the publisher, and the channel shards: see
 :class:`ShardedServerRunners`.
 """
 
+import collections
 import dataclasses
 import json
 import math
@@ -48,7 +49,11 @@ from coherent_rtlsdr_tpu_torch.parallel.mesh import (
     mesh_coords,
     mesh_shape,
 )
-from coherent_rtlsdr_tpu_torch.pipeline.drivers import make_packed_scan_runner, make_packed_step
+from coherent_rtlsdr_tpu_torch.pipeline.drivers import (
+    make_packed_scan_runner,
+    make_packed_step,
+    run_blocks,
+)
 from coherent_rtlsdr_tpu_torch.pipeline.offline import TimeAxis, _ema_scan, align_offline
 from coherent_rtlsdr_tpu_torch.pipeline.state import (
     PPACK_COLS,
@@ -415,10 +420,10 @@ class ShardedServerRunners:
     counterpart of the JAX package's ``make_sharded_server_jits``).
 
     Rank 0 is the controller: it alone owns the source, staging, the
-    publisher, the console and the checkpoint, and calls ``step`` /
-    ``scan`` with the unsharded packed runners' signatures and global
-    outputs. The other ranks run :func:`serve_follower`, which answers rank
-    0's headers until it posts EXIT. Each operation is a control header
+    publisher, the console and the checkpoint, and calls ``run`` with the
+    global blocks, as the server calls ``io/server.py:LocalServerRunners``
+    without a mesh. The other ranks run :func:`serve_follower`, which
+    answers rank 0's headers until it posts EXIT. Each operation is a control header
     (int64 ``[op, a, b]``, broadcast on a gloo group of the mesh's ranks, so
     a waiting rank waits on the CPU) and then its data collectives on the
     mesh's channel group (NCCL when each rank has a card, gloo with host
@@ -428,9 +433,11 @@ class ShardedServerRunners:
       STEP (K, gate)  one scatter: each rank's chunk of packed bytes holds
                       its seqnums [K, N/S], its signal rows [K, N/S, ...]
                       and the reference block [K, ...]; each rank's packed
-                      runner on its packed state; one gather to rank 0 of
-                      each rank's packed telemetry [K, N/S, 10] and wire
-                      [K, N/S, ...], put together in channel-rank order;
+                      step (K = 1) or scan runner on its packed state
+                      (``pipeline/drivers.py:run_blocks``); one gather to
+                      rank 0 of each rank's packed telemetry [K, N/S, 10]
+                      and wire [K, N/S, ...], put together in channel-rank
+                      order;
                       ``wire_ref`` is rank 0's own (every rank computes it)
       STATE_GET       the packed state's per-channel rows gathered (or the
                       delay column alone); hist row 0 and block_idx rank 0's
@@ -458,33 +465,25 @@ class ShardedServerRunners:
         self.device = torch.device(device)
         nccl = dist.get_backend(self.group) == "nccl"
         # Where rank 0 stages the global blocks and the collectives run.
-        self.comm_device = self.device if nccl else torch.device("cpu")
+        self.stage_device = self.device if nccl else torch.device("cpu")
         self._pin = not nccl and self.device.type == "cuda"
         self._gates = {v: torch.tensor(v, device=self.device) for v in (False, True)}
         self.local_cfg = None
         self.pstate = None          # a follower's packed state
         self.n_runner_builds = 0
         self.blocks_served = 0
-        self.scan = None
+        self.graph_counts = collections.Counter()   # the ranks' steps run eagerly: none
         self._closed = False
 
     # ---- rank 0 -------------------------------------------------------------
 
-    def step(self, pstate, sig_u8, ref_u8, gate: bool, seq):
-        """One block, as ``make_packed_step``'s runner: ``(pstate, wire,
-        wire_ref, telem [N, 10])``. ``pstate`` is rank 0's packed shard;
-        ``gate`` a Python bool (it travels in the header)."""
-        self._post(_STEP, 1, int(gate))
-        pstate, wire, wire_ref, telem = self._run(pstate, 1, gate, sig_u8[None], ref_u8[None],
-                                                  seq[None])
-        return pstate, wire[0], wire_ref[0], telem[0]
-
-    def scan_blocks(self, pstate, sigs, refs, gate: bool, seqs):
-        """K blocks, as ``make_packed_scan_runner``'s runner: ``(pstate,
-        (wire, wire_ref), telem [K, N, 10])``."""
+    def run(self, pstate, sigs, refs, gate: bool, seqs):
+        """K >= 1 global blocks ``sigs [K, N, ...]``, ``refs [K, ...]``,
+        ``seqs [K, N]``: ``(pstate, wire [K, N, ...], wire_ref [K, ...],
+        telem [K, N, 10])``. ``pstate`` is rank 0's packed shard; ``gate``
+        a Python bool (it travels in the header)."""
         self._post(_STEP, sigs.shape[0], int(gate))
-        pstate, wire, wire_ref, telem = self._run(pstate, sigs.shape[0], gate, sigs, refs, seqs)
-        return pstate, (wire, wire_ref), telem
+        return self._run(pstate, sigs.shape[0], gate, sigs, refs, seqs)
 
     def rebuild(self, cfg: PipelineConfig) -> None:
         """Build every rank's runners for the global ``cfg``."""
@@ -500,7 +499,8 @@ class ShardedServerRunners:
         return pack_state(init_state(self.local_cfg, self.device))
 
     def get_state(self, pstate):
-        """The global packed state on the host, from rank 0's shard
+        """The global packed state on the host (for
+        ``pipeline/state.py:unpack_state_host``), from rank 0's shard
         ``pstate`` and the others'."""
         self._post(_STATE_GET, 0)
         return self._gather_state(pstate)
@@ -587,12 +587,8 @@ class ShardedServerRunners:
         ``[K, N, ...]`` blocks, the others None. Returns (pstate, wire
         [K, N, ...] and telem [K, N, 10] on rank 0 or None, wire_ref)."""
         seq, sig, ref = self._scatter_blocks(k, seqs, sigs, refs)
-        g = self._gates[bool(gate)]
-        if k == 1:
-            pstate, wire, wire_ref, telem = self._step1(pstate, sig[0], ref[0], g, seq[0])
-            wire, wire_ref, telem = wire[None], wire_ref[None], telem[None]
-        else:
-            pstate, (wire, wire_ref), telem = self._step_k(pstate, sig, ref, g, seq)
+        pstate, wire, wire_ref, telem = run_blocks(self._step1, self._step_k, pstate, sig, ref,
+                                                   self._gates[bool(gate)], seq)
         self.blocks_served += k
         telem, wire = self._gather_outputs(telem, wire)
         return pstate, wire, wire_ref, telem
@@ -608,7 +604,7 @@ class ShardedServerRunners:
             offs, nbytes = _layout(ins)
             parts = None
             if self.leader:
-                packed = torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.comm_device)
+                packed = torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.stage_device)
                 by_rank = [x.unflatten(1, (self.S, n)).movedim(1, 0) for x in (seqs, sigs)]
                 # the reference block goes to every rank: copy_ broadcasts it
                 for (shape, dtype), off, x in zip(ins, offs, (*by_rank, refs)):
@@ -629,7 +625,7 @@ class ShardedServerRunners:
             out = self._empty((nbytes,), torch.uint8)
             for (shape, dtype), off, x in zip(specs, offs, xs):
                 _bytes(out, off, shape, dtype).copy_(x)
-            gathered = (torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.comm_device)
+            gathered = (torch.empty((self.S, nbytes), dtype=torch.uint8, device=self.stage_device)
                         if self.leader else None)
             dist.gather(out, None if gathered is None else list(gathered.unbind(0)), self._src,
                         group=self.group)
@@ -639,7 +635,7 @@ class ShardedServerRunners:
                          for (shape, dtype), off in zip(specs, offs))
 
     def _empty(self, shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=self.comm_device, pin_memory=self._pin)
+        return torch.empty(shape, dtype=dtype, device=self.stage_device, pin_memory=self._pin)
 
     def _scatter(self, x, shape, dtype, dim):
         """Rank 0's ``x`` split in S along ``dim``: this rank's part (of
@@ -648,19 +644,19 @@ class ShardedServerRunners:
         parts = None
         if x is not None:
             parts = [p.contiguous()
-                     for p in torch.tensor_split(x.to(self.comm_device), self.S, dim=dim)]
+                     for p in torch.tensor_split(x.to(self.stage_device), self.S, dim=dim)]
         dist.scatter(buf, parts, self._src, group=self.group)
         return buf.to(self.device, non_blocking=True)
 
     def _broadcast(self, x, shape, dtype):
-        buf = self._empty(shape, dtype) if x is None else x.to(self.comm_device).contiguous()
+        buf = self._empty(shape, dtype) if x is None else x.to(self.stage_device).contiguous()
         dist.broadcast(buf, self._src, group=self.group)
         return buf.to(self.device, non_blocking=True)
 
     def _gather(self, x, dim):
         """Every rank's ``x`` put together along ``dim`` on rank 0 (on the
         collectives' device); None elsewhere."""
-        buf = x.to(self.comm_device).contiguous()
+        buf = x.to(self.stage_device).contiguous()
         parts = [torch.empty_like(buf) for _ in range(self.S)] if self.leader else None
         dist.gather(buf, parts, self._src, group=self.group)
         if parts is None:
@@ -685,12 +681,10 @@ class ShardedServerRunners:
         return ppack, ipack, torch.cat([ref_row, rows])
 
 
-def make_sharded_server_runners(cfg: PipelineConfig, mesh, scan_depth: int = 1,
-                                device="cuda"):
+def make_sharded_server_runners(cfg: PipelineConfig, mesh, device="cuda"):
     """Rank 0's side of the streaming server sharded over the ``channel``
-    axis of a (1, S) mesh: a :class:`ShardedServerRunners` whose ``step``
-    and ``scan`` (None at depth 1) take and return what
-    ``make_packed_step`` / ``make_packed_scan_runner`` do, on rank 0's
+    axis of a (1, S) mesh: a :class:`ShardedServerRunners` whose ``run``
+    takes the global blocks and returns the global outputs, on rank 0's
     packed shard (``init_pstate``). Posts the config to the other ranks,
     which run :func:`serve_follower`. Raises ``ValueError`` for a time axis
     larger than 1 and for a channel count S does not divide."""
@@ -699,7 +693,6 @@ def make_sharded_server_runners(cfg: PipelineConfig, mesh, scan_depth: int = 1,
         raise ValueError("rank 0 runs the server; the other ranks call serve_follower")
     runners = ShardedServerRunners(mesh, device)
     runners.rebuild(cfg)
-    runners.scan = runners.scan_blocks if scan_depth > 1 else None
     return runners
 
 

@@ -5,6 +5,7 @@
 * ``make_packed_scan_runner``: K blocks per call with the state packed to
   three tensors (``state.pack_state``) - the streaming server's mode.
 * ``make_packed_step``: its single-block twin.
+* ``run_blocks``: K blocks through one or the other (the server's rule).
 * ``run_capture``: a whole in-memory capture with streaming semantics.
 
 The fused path emits int8 wire bytes straight from its apply kernel (flat
@@ -112,6 +113,19 @@ def make_packed_step(cfg: PipelineConfig):
             return pack_state(state), wire, wire_ref, pack_telemetry(out.telemetry)
 
     return run
+
+
+def run_blocks(step1, scan, pstate, sigs, refs, gate, seqs):
+    """K >= 1 blocks through a packed step ``step1`` or a packed scan
+    runner ``scan`` (as :func:`make_packed_step` and
+    :func:`make_packed_scan_runner` return): one block goes through the
+    step, more through the scan. Returns ``(pstate, wire [K, ...], wire_ref
+    [K, ...], telem [K, N, 10])`` either way."""
+    if sigs.shape[0] == 1:
+        pstate, wire, wire_ref, telem = step1(pstate, sigs[0], refs[0], gate, seqs[0])
+        return pstate, wire[None], wire_ref[None], telem[None]
+    pstate, (wire, wire_ref), telem = scan(pstate, sigs, refs, gate, seqs)
+    return pstate, wire, wire_ref, telem
 
 
 def run_capture(

@@ -12,8 +12,9 @@ stream (``kernels/fused_cuda.py:_setup``), so one call is captured once
 the same bytes in the same order, so wire bytes, telemetry and state are
 bit-equal to the eager step's.
 
-The streaming server wraps its depth-1 step in :class:`GraphedStep` on the
-card, on the fused path, without a mesh (``io/server.py:step_is_graphed``).
+The streaming server's runners wrap their depth-1 step in
+:class:`GraphedStep` on the card, on the fused path, without a mesh
+(``io/server.py:LocalServerRunners``, ``step_is_graphed``).
 """
 
 import collections
@@ -56,8 +57,8 @@ class GraphedStep:
     Launch counts keep meaning launches a block served: the kernels'
     counts (``FusedPipelineKernels.counts``) are put back after the warm-up
     and the capture, and each replay adds what the captured call launched.
-    ``counts`` (a ``collections.Counter``, shared by the server across its
-    runner builds) gets ``"captures"`` and ``"replays"``. When
+    ``counts`` (a ``collections.Counter``, shared by the server's runners
+    across their builds) gets ``"captures"`` and ``"replays"``. When
     ``utils.SPANS`` is recording, each replay is the span
     ``kernels.step_graph``; the step's own ``step.*`` and ``kernels.<op>``
     spans run only in the warm-up and the capture.

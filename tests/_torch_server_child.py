@@ -13,8 +13,8 @@ builds, blocks served, and what it measured) and ``DIR/out_<rank>.npz``
 
 Cases (``spec["case"]``):
   runners  ``make_sharded_server_runners`` from the initial state over the
-           capture, one block a ``step`` call (``K`` = 1) or K a ``scan``
-           call: the gathered wire, wire_ref, telemetry and final state.
+           capture, ``K`` blocks a ``run`` call: the gathered wire,
+           wire_ref, telemetry and final state.
   server   ``CoherentServer(mesh=...)`` on a ``FileSource`` of the capture
            (or the synthetic stream, ``spec["synth"]``) with an in-memory
            publisher: ``runs`` of ``[console commands, blocks]`` (the
@@ -73,18 +73,14 @@ class Control:
 def run_runners(spec, mesh, data):
     cfg = PipelineConfig(**spec["cfg"])
     K = spec["K"]
-    r = make_sharded_server_runners(cfg, mesh, scan_depth=K, device="cpu")
+    r = make_sharded_server_runners(cfg, mesh, device="cpu")
     pstate = r.init_pstate()
     sig, ref = torch.from_numpy(data["sig"]), torch.from_numpy(data["ref"])
     seq = torch.from_numpy(data["seqnums"].astype(np.int64))
     wires, refs, telems = [], [], []
     for t in range(0, sig.shape[0], K):
         b = slice(t, t + K)
-        if K == 1:
-            pstate, w, wr, tel = r.step(pstate, sig[t], ref[t], True, seq[t])
-            w, wr, tel = w[None], wr[None], tel[None]
-        else:
-            pstate, (w, wr), tel = r.scan(pstate, sig[b], ref[b], True, seq[b])
+        pstate, w, wr, tel = r.run(pstate, sig[b], ref[b], True, seq[b])
         wires.append(w)
         refs.append(wr)
         telems.append(tel)
@@ -134,7 +130,7 @@ def run_server(spec, mesh, data, out_dir):
                 replies=replies, n_runner_builds=srv.n_runner_builds,
                 n_active=srv.n_active, frame_shapes=[list(s) for s in shapes],
                 last_frame_shape=list(frames[-1][0].shape), fs=srv.fs,
-                blocks_served=srv._shards.blocks_served)
+                blocks_served=srv._runners.blocks_served)
     srv.close()
     return out, info
 

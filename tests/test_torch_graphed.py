@@ -103,7 +103,7 @@ def test_cpu_server_builds_no_graph(scan_depth):
                                                  ref_u8=cap.ref_u8.numpy(), seqnums=seqs,
                                                  fs=2.048e6, fcenter=868e6)),
                          publisher=pub, control=_Control(), scan_depth=scan_depth, device="cpu")
-    assert not isinstance(srv._step, GraphedStep)
+    assert not isinstance(srv._runners._step, GraphedStep)
     assert srv.run() == T
     assert srv.graph_captures == 0 and srv.graph_replays == 0
     step = make_packed_step(cfg)
@@ -192,7 +192,7 @@ def _check_graphed_against_eager(dev, n, L, blocks, monkeypatch, counted, **kw):
         if torch.device(dev).type == "cpu":
             m.setattr(server_mod, "step_is_graphed", lambda *a: True)
         srv, pub, ctl = _server(dev, n, L, **kw)
-        assert isinstance(srv._step, GraphedStep)
+        assert isinstance(srv._runners._step, GraphedStep)
         served = _serve(srv, ctl, blocks)
     _assert_same_stream((srv, pub), (eager, epub))
     assert srv.graph_replays == served
@@ -321,8 +321,8 @@ def _a_block(n, L):
 
 
 def _check_direct_calls_leave_the_server_alone(dev, n, L, whose, monkeypatch):
-    """Eight blocks served, three direct calls of the server's step on
-    ``whose`` state ("own": the server's, "another": a fresh one), then
+    """Eight blocks served, three direct one-block calls of the server's
+    runners (its step) on ``whose`` state ("own": the server's, "another": a fresh one), then
     eight more: the server's state is as it was after the calls, and its
     16 frames and final state bit-equal to an eager server's that served 16
     blocks without them."""
@@ -334,13 +334,13 @@ def _check_direct_calls_leave_the_server_alone(dev, n, L, whose, monkeypatch):
         if torch.device(dev).type == "cpu":
             m.setattr(server_mod, "step_is_graphed", lambda *a: True)
         srv, pub, _ = _server(dev, n, L)
-    assert isinstance(srv._step, GraphedStep)
+    assert isinstance(srv._runners._step, GraphedStep)
     assert srv.run(max_blocks=8) == 8
     held = srv.state
     pstate = srv._st if whose == "own" else pack_state(init_state(srv.cfg, dev))
     sig, ref, seq = srv._stage([_a_block(n, L)])
     for _ in range(3):
-        srv._step(pstate, sig[0], ref[0], torch.tensor(True, device=dev), seq[0])
+        srv._runners.run(pstate, sig, ref, True, seq)
     now = srv.state
     for f in dataclasses.fields(held):
         np.testing.assert_array_equal(getattr(now, f.name), getattr(held, f.name), err_msg=f.name)

@@ -158,8 +158,8 @@ def _file_source(sig, ref, seqs):
 @pytest.mark.parametrize("S", [2, 4], ids=["mesh1x2", "mesh1x4"])
 @pytest.mark.parametrize("impl", ["fused", "xla"])
 def test_runners_match_jax(tmp_path, impl, S, K):
-    """make_sharded_server_runners (rank 0's step, or scan at K = 4, over
-    8 blocks from the initial state) against the JAX make_sharded_server_jits
+    """make_sharded_server_runners (rank 0's run, one block a call or
+    K = 4, over 8 blocks from the initial state) against the JAX make_sharded_server_jits
     on the same bytes and mesh shape: wire within 1 LSB, wire_ref equal,
     telemetry and the final state's delay and phase within 1e-4 (papr, a
     ratio in the thousands, within 1e-4 of its value), the seqnum

@@ -113,10 +113,12 @@ def _assert_same_server_state(jsrv, tsrv):
 # (impl, scan_depth, max_channels, seqnum gaps, block length, blocks): the
 # fused, pallas and mxu paths at L = 2048 (W = 64^2, their smallest square
 # length), xla at L = 1024, and the fused path at L = 32768 (W = 256^2, its
-# largest; 8 blocks keep the JAX kernels' interpret mode short).
+# largest; 8 blocks keep the JAX kernels' interpret mode short); 9 blocks at
+# depth 4 end on a one-block batch.
 SERVER_CASES = [
     pytest.param("fused", 1, None, False, 2048, 12, id="fused-1"),
     pytest.param("fused", 4, None, False, 2048, 12, id="fused-4"),
+    pytest.param("fused", 4, None, False, 2048, 9, id="fused-4-tail"),
     pytest.param("xla", 1, None, False, L, 12, id="xla-1"),
     pytest.param("xla", 4, None, False, L, 12, id="xla-4"),
     pytest.param("xla", 1, 5, False, L, 12, id="xla-1-padded"),
@@ -132,8 +134,8 @@ SERVER_CASES = [
 @pytest.mark.parametrize("impl, scan_depth, max_channels, gaps, block_len, n_blocks",
                          SERVER_CASES)
 def test_matches_jax_server(impl, scan_depth, max_channels, gaps, block_len, n_blocks):
-    """Both servers on one FileSource capture (12 blocks, or 8 at L = 32768;
-    3 channels): the same frames, seqnums and phases, the same per-channel
+    """Both servers on one FileSource capture (12 blocks, 8 at L = 32768 or
+    9 for a one-block tail; 3 channels): the same frames, seqnums and phases, the same per-channel
     gaps, last seqnums and sync flags, and the same status line (every
     channel synchronized where no seqnum jumps)."""
     cap = _capture(block_len, n_blocks)

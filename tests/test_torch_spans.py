@@ -169,9 +169,9 @@ def test_poll_holds_the_flag_for_one_unit_of_work():
 
 
 def _direct_step(srv):
-    """One block through the server's step, outside its loop."""
+    """One block through the server's runners (its step), outside its loop."""
     sig, ref, seq = srv._stage([srv.source.next_block()])
-    srv._st, *_ = srv._step(srv._st, sig[0], ref[0], torch.tensor(True), seq[0])
+    srv._st, *_ = srv._runners.run(srv._st, sig, ref, True, seq)
 
 
 def test_recording_ends_with_the_unit_of_work(spans):
