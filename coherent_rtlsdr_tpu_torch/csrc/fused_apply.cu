@@ -25,24 +25,63 @@
 // bytes for the handoff (spectrum in), 0.32 ms of products against
 // 0.08-0.16 ms of bytes (each block read once) where the forward is
 // recomputed, so only a load that overlaps the products gets near the
-// bound. The products run on the tensor cores
+// bound. The one-CTA kernels run their products on mma.sync
 // (fused_common.cuh: forward_tc, then the transposed inverse
-// inverse_tc_first / inverse_tc_centre, mma.sync m16n8k16 bf16 -> f32, a
-// warp a 16-row strip, B2 kept in registers as the second product's A
-// fragments, only the centre columns of the second product). Its epilogue
-// is the int8 wire (WireChunk: quantized, staged a chunk a warp, stored 16
-// bytes a lane) or the float32 samples (FloatChunk: streaming stores, each
-// instruction four whole 32-byte sectors). The ramp is built per element
-// from the advance (exact integer part, then the fractional part times the
-// signed frequency), so no ramp table is read; sincospif of the ramp in
-// turns (exact argument reduction) keeps the kernels free of a stack frame.
-//   * apply_spec_kernel: a persistent grid (one CTA an SM at m = 128). Four
-//     producer warps stream the next window's D (16-byte loads), multiply
-//     it by the ramp and phase factor, and write G = bf16(D w) swizzled into
-//     the free one of two window buffers while the m / 16 consumer warps run
-//     the inverse of the other; named barriers hand the buffers over, as in
-//     fourstep.cu. Shared memory at m = 128: the Fi table (64 kB), two G
-//     buffers (128 kB), a 1 kB staging tile a consumer warp: 204,800 bytes.
+// inverse_tc_first / inverse_tc_centre, m16n8k16 bf16 -> f32, a warp a
+// 16-row strip, B2 kept in registers as the second product's A fragments,
+// only the centre columns of the second product), the persistent handoff
+// kernel the same inverse on wgmma. The epilogue is the int8 wire
+// (WireChunk: quantized, staged a chunk a warp, stored 16 bytes a lane) or
+// the float32 samples (FloatChunk: streaming stores, each instruction four
+// whole 32-byte sectors). The one-CTA and m = 256 kernels build the ramp
+// per element (Ramp::weight: exact integer part, then the fractional part
+// times the signed frequency, one sincospif of the ramp in turns, whose
+// exact argument reduction keeps them free of a stack frame): no cell runs
+// the one-CTA ones, and the phasors at m = 256 are work for a change
+// measured on b32768.offline, which the persistent kernel's change leaves
+// untouched.
+//   * apply_spec_kernel (m = 64, 128): a persistent grid, min(windows, CTAs
+//     that fit: one an SM at m = 128) CTAs, CTA b taking windows b, b +
+//     grid, ... on a fixed stride (no work counter, so a captured CUDA
+//     graph replays it). An offline call of T = 256 is ~41 windows a CTA,
+//     a server block of 21 windows one. Two warpgroups of consumers (one at
+//     m = 64) and one of ramp warps; at m = 128 the ramp warpgroup gives up
+//     registers to the consumers (setmaxnreg: 40 and 232 a thread). A
+//     window's path, two windows in flight a CTA:
+//       - the copy engine brings window j + 2's D (two bf16 planes, 32 kB
+//         each at m = 128) into buffer j % 2 by cp.async.bulk, issued by
+//         one thread and completing on the buffer's mbarrier, once window
+//         j's first product has read that buffer;
+//       - the ramp warps turn D into G = bf16(D row[r] col[c]) in place,
+//         from 2m phasors a window (ramp_phasors: the ramp of bin r + m c
+//         is a row phasor times a signed-column phasor, the phase factor
+//         folded into the rows) instead of one sincospif an element, and
+//         write G in the tiled layout the first product reads (ramp_window:
+//         an 8-row band is the same 2 kB in both layouts);
+//       - the consumers run C2^T = Fi G^T on wgmma m64n32k16 (Fi's A
+//         fragments held in registers for every window, G the K-major B
+//         through descriptors), B2^T = bf16(C2^T conj(T)) into registers
+//         (the twiddle read from L2 after each chunk's product), then y^T =
+//         B2^T Fi on the centre columns (Fi's tiled planes the K-major B),
+//         into the wire; window j + 1's ramp runs beside window j's
+//         products.
+//     The consumers' registers set the design: Fi's fragments (64 a
+//     thread), B2's (64) and a chunk's accumulators (32) leave no room for
+//     the twiddle read ahead of the product (32 more spilled), so the ramp
+//     warpgroup runs on 40 registers (one 16-byte chunk a plane a thread)
+//     and hands the consumers 232.
+//     What bounds it: 25.2 MFLOP of products a window at m = 128, 3.4 us on
+//     one SM's share of the bf16 peak, and 80 kB of bytes (64 in, 16 out),
+//     3.1 us of an SM's share of 3.35 TB/s. Shared memory at m = 128, 208,912
+//     of the 232,448 bytes a CTA may have (ApplySpecPlan): Fi's tiled planes
+//     (64 kB), two window buffers (2 x 64 kB, each D then G), a 1 kB
+//     staging tile a consumer warp, two phasor tables (2 x 2 kB) and the two
+//     buffers' mbarriers. A separate D slot beside two G buffers would need
+//     264 kB. Measured (H100, 700 W, T = 256, N = 21; PERF.md section 6,
+//     row 2): 0.30 ms a call against 0.59 for producer warps that took a
+//     sincospif an element and consumers on mma.sync; 0.20 ms with the
+//     products cut out: the copies, the ramp and the wire epilogue overlap
+//     the products only in part.
 //   * apply_i8_kernel and apply_planes_kernel: one CTA a window, m / 16
 //     warps, one body (apply_window): the window's bytes (load_window_i8)
 //     or planes (load_window_planes), forward_tc with F, whose epilogue
@@ -54,7 +93,7 @@
 //     still reads) and the window / G (64 kB), 196,608 bytes, plus the
 //     staging tiles (8 kB) for the wire.
 // The load has no overlap with the products in the one-CTA kernels; the
-// persistent grid with producer warps is the model for that.
+// persistent grid is the model for that.
 //
 // m = 256 (W = 65536): every apply runs a window on a cluster of four CTAs
 // of four warpgroups (fused_cluster.cuh), the inverse (inverse_cluster) the
@@ -79,23 +118,37 @@
 
 namespace fused {
 
-constexpr int kProducerWarps = 4;
-constexpr int kLoadUnroll = 4;  // 16-byte vector pairs (re, im) in flight a producer thread
-constexpr int kFull = 1;        // named barriers kFull + s: G buffer s is written
-constexpr int kEmpty = 3;       // kEmpty + s: G buffer s may be overwritten
+// The persistent apply_spec_kernel at m in {64, 128}: m / 16 consumer warps
+// (m / 64 warpgroups on wgmma, a 16-row strip a warp) and a warpgroup of
+// ramp warps that turn each window's D into G in place. At m = 128 the
+// three warpgroups (12 warps, three a sub-partition, launched at 168
+// registers a thread) split a sub-partition's registers as kRampRegs + 2
+// kConsumerRegs = 3 x 168 (tc::setmaxnreg_*: more, and the consumers'
+// request would wait for ever); at m = 64 two warpgroups leave each warp
+// 255.
+constexpr int kRampWarps = 4;
+constexpr int kRampRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kFull = 1;       // named barriers kFull + s: buffer s holds G
+constexpr int kConsumed = 3;   // the consumers: their first product has read G
+constexpr int kRampSync = 4;   // the ramp warps: phasors written, or bands read
 
-// The persistent apply_spec_kernel: m / 16 consumer warps (a 16-row strip
-// each) and the producer warps.
 template <int M>
 struct ApplySpecPlan {
   static constexpr int kConsumerWarps = M / 16;
   static constexpr int kConsumers = 32 * kConsumerWarps;
-  static constexpr int kProducers = 32 * kProducerWarps;
-  static constexpr int kThreads = kConsumers + kProducers;
-  static constexpr int kPlane = M * M;  // bf16 elements of one plane
-  // The Fi table (re, im), two G buffers (re, im), a staging tile a consumer warp.
-  static constexpr size_t kBytes =
-      6 * kPlane * sizeof(__nv_bfloat16) + kConsumerWarps * kWireStage;
+  static constexpr int kRamps = 32 * kRampWarps;
+  static constexpr int kThreads = kConsumers + kRamps;
+  // Bytes of a window's bf16 re / im planes: the Fi table, or a buffer.
+  static constexpr size_t kPlanes = 2 * sizeof(__nv_bfloat16) * M * M;
+  // Fi's tiled planes at 0; buffers 0 and 1 at kPlanes and 2 kPlanes; a
+  // staging tile a consumer warp; two phasor tables (m row phasors, then m
+  // column phasors, float2, in ramp_window's order); a barrier a buffer.
+  static constexpr size_t kStage = 3 * kPlanes;
+  static constexpr size_t kPhasors = kStage + kConsumerWarps * kWireStage;
+  static constexpr size_t kBars = kPhasors + 2 * 2 * M * sizeof(float2);
+  static constexpr size_t kBytes = kBars + 2 * sizeof(uint64_t);
+  static_assert(kBytes <= 232448, "a CTA's shared memory on the H100");
 };
 
 // The one-CTA kernels: the F and Fi tables and the window / G, kTable bytes
@@ -149,87 +202,254 @@ struct Ramp {
   }
 };
 
-// Vector q of D (elements 8q..8q+7 of the window, row-major [k2][k1]), the
-// 16-byte words vr, vi of its re / im planes, times the ramp into G: one
-// 16-byte chunk of each swizzled plane gre, gim.
+// Window b's D planes (bf16 [m, m] each, row-major [k2][k1]) into the
+// buffer `buf` (re, then im) by the copy engine, by one thread: the
+// buffer's barrier armed with both copies' bytes.
 template <int M>
-__device__ __forceinline__ void store_g(const Ramp<M>& ramp, int q, uint4 vr, uint4 vi,
-                                        __nv_bfloat16* gre, __nv_bfloat16* gim) {
-  const int r = 8 * q / M, c = 8 * q % M;
-  const uint32_t xr[4] = {vr.x, vr.y, vr.z, vr.w};
-  const uint32_t xi[4] = {vi.x, vi.y, vi.z, vi.w};
-  uint32_t ore[4], oim[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 re = unpack_bf16(xr[i]), im = unpack_bf16(xi[i]);
-    const uint2 gw = ramp.g_pair(r, c + 2 * i, make_float2(re.x, im.x), make_float2(re.y, im.y));
-    ore[i] = gw.x;
-    oim[i] = gw.y;
-  }
-  const int o = tc::swz<M>(r, c);
-  *reinterpret_cast<uint4*>(gre + o) = make_uint4(ore[0], ore[1], ore[2], ore[3]);
-  *reinterpret_cast<uint4*>(gim + o) = make_uint4(oim[0], oim[1], oim[2], oim[3]);
+__device__ __forceinline__ void stage_spectrum(const __nv_bfloat16* __restrict__ dre,
+                                               const __nv_bfloat16* __restrict__ dim, size_t b,
+                                               __nv_bfloat16* buf, uint64_t* bar) {
+  constexpr uint32_t kPlane = sizeof(__nv_bfloat16) * M * M;
+  cl::mbar_arm(bar, 2 * kPlane);
+  bulk_load(buf, dre + b * M * M, kPlane, bar);
+  bulk_load(buf + M * M, dim + b * M * M, kPlane, bar);
 }
 
-// Producer warps: window j of this CTA (window blockIdx.x + j gridDim.x of
-// the batch) from dre / dim bf16 [B, m, m] into G buffer j % 2, as swizzled
-// bf16 planes [k2][k1].
+// The window's ramp as a row phasor times a column phasor. For bin k = r +
+// m c (row r = k2, column c = k1) and delay d = di + df, the ramp
+// e^{-2 pi i (k di / W + f_k df)} is e^{-2 pi i (r di / W + r df / W)}
+// times e^{-2 pi i (c di / m + c_s df / m)}, c_s the signed column (c - m
+// from c = m/2 on, where k >= W/2 and f_k = (k - W) / W): the integer part
+// from exact residues, as iramp_fraction gives them. The ramp threads (p of
+// kRamps) write table `ph` for the window's delay and phase factor `w`: the
+// m row phasors times the phase factor, then the m column phasors (at
+// col_slot); each is (cos, -sin) of 2 pi turns by sincospif, one a table
+// entry (tests/test_torch_apply_ramp.py holds the split to the plain
+// version's ramp).
 template <int M>
-__device__ __forceinline__ void produce_g(const __nv_bfloat16* __restrict__ dre,
-                                          const __nv_bfloat16* __restrict__ dim,
-                                          const float* __restrict__ advance,
-                                          const float* __restrict__ phase_re,
-                                          const float* __restrict__ phase_im,
-                                          __nv_bfloat16* win, int n_local) {
-  using P = ApplySpecPlan<M>;
+__device__ __forceinline__ int col_slot(int c) {
+  // Columns 8 c8 + 2v, 8 c8 + 2v + 1 are the float4 at v (m / 8) + c8: the
+  // 8 lanes of a quarter warp in ramp_window, whose c8 differ mod 8, read
+  // 8 distinct bank groups.
+  return 2 * ((c % 8 / 2) * (M / 8) + c / 8) + c % 2;
+}
+
+template <int M>
+__device__ __forceinline__ void ramp_phasors(const Ramp<M>& w, float2* ph, int p) {
   constexpr int W = M * M;
-  constexpr int kVec = W / 8;  // 16-byte vectors (8 elements) of a plane
-  static_assert(kVec % (P::kProducers * kLoadUnroll) == 0, "whole rounds only");
+  for (int i = p; i < 2 * M; i += kRampWarps * 32) {
+    const bool row = i < M;
+    const uint32_t x = static_cast<uint32_t>(row ? i : i - M);
+    const int xs = row || x < M / 2 ? static_cast<int>(x) : static_cast<int>(x) - M;
+    const float turns = row ? __fadd_rn(iramp_fraction<W>(x, w.d_int),
+                                        __fmul_rn(static_cast<float>(xs) * (1.f / W), w.df))
+                            : __fadd_rn(iramp_fraction<M>(x, w.d_int),
+                                        __fmul_rn(static_cast<float>(xs) * (1.f / M), w.df));
+    float s, co;
+    sincospif(2.f * turns, &s, &co);
+    if (row)
+      ph[i] = make_float2(co * w.p_re + s * w.p_im, co * w.p_im - s * w.p_re);
+    else
+      ph[M + col_slot<M>(static_cast<int>(x))] = make_float2(co, -s);
+  }
+}
+
+// The ramp warpgroup's pass over a window, in place: the buffer `buf` holds
+// D as row-major bf16 planes (re, im) and ends holding G = bf16(D row[r]
+// col[c]) as tiled planes (fused_common.cuh: tiled), the layout the
+// inverse's first product reads. An 8-row band (rows 8R..8R+7) fills the
+// same 2 kB of a plane in both layouts, so the ramp threads take 128 / m
+// bands at a time, one 16-byte chunk of each plane a thread, and read all
+// of them (a barrier of the ramp threads) before they write any: four
+// registers of D a plane a thread, which keeps the warpgroup within the
+// few registers it leaves to the consumers. Thread p takes row 8R + i (i =
+// p % 8) and column chunk c8 = (p % m / 8 + i) mod (m / 8); the 8 threads
+// of a quarter warp then read 8 distinct bank groups (c8 mod 8: the D
+// chunk and the column phasors at col_slot) and write 8 (i).
+template <int M>
+__device__ __forceinline__ void ramp_window(__nv_bfloat16* buf, const float2* ph, int p) {
+  constexpr int kRow = M / 8;              // 16-byte chunks in a row of a plane
+  constexpr int kBands = kRampWarps * 32 / M;   // bands a step
+  const int i = p & 7;
+  const int c8 = ((p % M) / 8 + i) % kRow;
+  const float4* col = reinterpret_cast<const float4*>(ph + M);
+  uint4* re = reinterpret_cast<uint4*>(buf);
+  uint4* im = reinterpret_cast<uint4*>(buf + M * M);
+#pragma unroll 1
+  for (int band = p / M; band < M / 8; band += kBands) {
+    const int r = 8 * band + i;
+    const uint4 vr = re[r * kRow + c8], vi = im[r * kRow + c8];
+    tc::bar_sync(kRampSync, kRampWarps * 32);   // the bands are read: G may overwrite them
+    const float2 rw = ph[r];
+    const uint32_t xr[4] = {vr.x, vr.y, vr.z, vr.w};
+    const uint32_t xi[4] = {vi.x, vi.y, vi.z, vi.w};
+    uint32_t ore[4], oim[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // Columns 8 c8 + 2e and 8 c8 + 2e + 1: the weight row[r] col[c], then D w.
+      const float2 dr = unpack_bf16(xr[e]), di = unpack_bf16(xi[e]);
+      const float4 c = col[e * kRow + c8];
+      const float w0r = rw.x * c.x - rw.y * c.y, w0i = rw.x * c.y + rw.y * c.x;
+      const float w1r = rw.x * c.z - rw.y * c.w, w1i = rw.x * c.w + rw.y * c.z;
+      ore[e] = tc::pack_bf16(dr.x * w0r - di.x * w0i, dr.y * w1r - di.y * w1i);
+      oim[e] = tc::pack_bf16(dr.x * w0i + di.x * w0r, dr.y * w1i + di.y * w1r);
+    }
+    const int o = tiled<M>(r, 8 * c8) / 8;
+    re[o] = make_uint4(ore[0], ore[1], ore[2], ore[3]);
+    im[o] = make_uint4(oim[0], oim[1], oim[2], oim[3]);
+  }
+}
+
+// The ramp warps: window j of this CTA (window blockIdx.x + j gridDim.x of
+// the batch) waits in buffer j % 2 for its D, which they turn into G there
+// (ramp_window) with the phasors of table j % 2, then hand to the
+// consumers.
+template <int M>
+__device__ __forceinline__ void ramp_windows(const float* __restrict__ advance,
+                                             const float* __restrict__ phase_re,
+                                             const float* __restrict__ phase_im,
+                                             unsigned char* smem, uint64_t* bars, int n_local) {
+  using P = ApplySpecPlan<M>;
   const int p = threadIdx.x - P::kConsumers;
   for (int j = 0; j < n_local; ++j) {
     const int s = j & 1;
-    if (j >= 2) tc::bar_sync(kEmpty + s, P::kThreads);
     const size_t b = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
-    const Ramp<M> ramp(advance[b], phase_re[b], phase_im[b]);
-    const uint4* src_re = reinterpret_cast<const uint4*>(dre + b * W);
-    const uint4* src_im = reinterpret_cast<const uint4*>(dim + b * W);
-    __nv_bfloat16* gre = win + s * 2 * P::kPlane;
-    __nv_bfloat16* gim = gre + P::kPlane;
-    for (int q0 = p; q0 < kVec; q0 += P::kProducers * kLoadUnroll) {
-      uint4 vr[kLoadUnroll], vi[kLoadUnroll];
-#pragma unroll
-      for (int u = 0; u < kLoadUnroll; ++u) {
-        vr[u] = __ldcs(src_re + q0 + u * P::kProducers);
-        vi[u] = __ldcs(src_im + q0 + u * P::kProducers);
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadUnroll; ++u)
-        store_g<M>(ramp, q0 + u * P::kProducers, vr[u], vi[u], gre, gim);
-    }
+    float2* ph = reinterpret_cast<float2*>(smem + P::kPhasors) + s * 2 * M;
+    // Table s was last read for window j - 2, before every ramp thread
+    // passed window j - 1's first barrier below.
+    ramp_phasors<M>(Ramp<M>(advance[b], phase_re[b], phase_im[b]), ph, p);
+    tc::bar_sync(kRampSync, P::kRamps);
+    cl::mbar_wait(bars + s, (j >> 1) & 1);
+    ramp_window<M>(reinterpret_cast<__nv_bfloat16*>(smem + (1 + s) * P::kPlanes), ph, p);
+    fence_for_wgmma();
     tc::bar_arrive(kFull + s, P::kThreads);
   }
 }
 
-// Consumer warp: the strip n1 = r0..r0+15 of the inverse of every window of
-// this CTA, into the wire blocks out [B, m/2, 2m].
+// acc = Fi G^T over this warpgroup's 64 rows n1 (this warp's 16, r0..r0+15:
+// Fi's A fragments fr, fi, every k step) and chunk cc's kChunk columns k2,
+// on wgmma with G (tiled planes [k2][k1]) as the K-major B: re = Fr Gr -
+// Fi Gi, im = Fr Gi + Fi Gr, four m64n32k16 products a k step, all waited
+// for before it returns. A k step is 2 tiles (256 bytes) on in a row of
+// tiles, so one descriptor a plane walks them (tc::desc_advance).
 template <int M>
-__device__ __forceinline__ void consume_g(const __nv_bfloat16* tab, const __nv_bfloat16* win,
-                                          unsigned char* stage, const float2* __restrict__ Tw,
-                                          int8_t* __restrict__ out, int n_local) {
+__device__ __forceinline__ void inverse_first(const uint32_t (&fr)[M / 16][4],
+                                              const uint32_t (&fi)[M / 16][4],
+                                              const __nv_bfloat16* gre,
+                                              const __nv_bfloat16* gim, int cc,
+                                              float (&are)[tc::kChunkTiles][4],
+                                              float (&aim)[tc::kChunkTiles][4]) {
+  static_assert(tc::kChunk == 32, "m64n32k16");
+#pragma unroll
+  for (int i = 0; i < tc::kChunkTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) are[i][e] = aim[i][e] = 0.f;
+  const int o = tiled<M>(cc * tc::kChunk, 0);
+  uint64_t bre = tc::desc_k(gre + o, 128, (M / 8) * 128);
+  uint64_t bim = tc::desc_k(gim + o, 128, (M / 8) * 128);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < M / 16; ++ks) {
+    tc::wgmma<32, 1>(are, fr[ks], bre);
+    tc::wgmma<32, -1>(are, fi[ks], bim);
+    tc::wgmma<32, 1>(aim, fr[ks], bim);
+    tc::wgmma<32, 1>(aim, fi[ks], bre);
+    tc::desc_advance<256>(bre);
+    tc::desc_advance<256>(bim);
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait<0>();
+}
+
+// acc = B2^T Fi over this warpgroup's 64 rows n1 (this warp's 16: B2^T's A
+// fragments cre, cim) and the kChunk columns n2 from n0, on wgmma with Fi's
+// tiled planes (symmetric) as the K-major B: re = Cr Fr - Ci Fi, im = Cr Fi
+// + Ci Fr, all waited for before it returns; one descriptor a plane, as in
+// inverse_first.
+template <int M>
+__device__ __forceinline__ void inverse_second(const uint32_t (&cre)[M / 16][4],
+                                               const uint32_t (&cim)[M / 16][4],
+                                               const __nv_bfloat16* fre,
+                                               const __nv_bfloat16* fim, int n0,
+                                               float (&yre)[tc::kChunkTiles][4],
+                                               float (&yim)[tc::kChunkTiles][4]) {
+#pragma unroll
+  for (int i = 0; i < tc::kChunkTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yre[i][e] = yim[i][e] = 0.f;
+  const int o = tiled<M>(n0, 0);
+  uint64_t bre = tc::desc_k(fre + o, 128, (M / 8) * 128);
+  uint64_t bim = tc::desc_k(fim + o, 128, (M / 8) * 128);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < M / 16; ++kk) {
+    tc::wgmma<32, 1>(yre, cre[kk], bre);
+    tc::wgmma<32, -1>(yre, cim[kk], bim);
+    tc::wgmma<32, 1>(yim, cre[kk], bim);
+    tc::wgmma<32, 1>(yim, cim[kk], bre);
+    tc::desc_advance<256>(bre);
+    tc::desc_advance<256>(bim);
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait<0>();
+}
+
+// The consumer warps: the strip n1 = r0..r0+15 of the inverse of every
+// window of this CTA, into the wire blocks out [B, m/2, 2m]. Once every
+// first product of window j has read buffer j % 2, thread 0 sends the copy
+// engine window j + 2's D into it.
+template <int M>
+__device__ __forceinline__ void consume_windows(const __nv_bfloat16* __restrict__ dre,
+                                                const __nv_bfloat16* __restrict__ dim,
+                                                const float2* __restrict__ Tw,
+                                                int8_t* __restrict__ out, unsigned char* smem,
+                                                uint64_t* bars, int n_local) {
   using P = ApplySpecPlan<M>;
+  constexpr int W = M * M;
+  const __nv_bfloat16* tab = reinterpret_cast<const __nv_bfloat16*>(smem);
   const int warp = threadIdx.x >> 5;
   const int r0 = warp * 16;
-  unsigned char* st = stage + warp * kWireStage;
+  unsigned char* st = smem + P::kStage + warp * kWireStage;
+  // Fi's A fragments of the strip (rows r0..r0+15, every k step), held for
+  // every window: the first product's A is the same each time.
+  uint32_t fr[M / 16][4], fi[M / 16][4];
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < M / 16; ++ks) {
+    const int o = tiled<M>(r0 + (l & 15), ks * 16 + (l >> 4) * 8);   // tc::ldsm_a's lanes
+    tc::ldsm_x4(tc::smem_addr(tab + o), fr[ks]);
+    tc::ldsm_x4(tc::smem_addr(tab + W + o), fi[ks]);
+  }
   for (int j = 0; j < n_local; ++j) {
     const int s = j & 1;
     const size_t b = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
+    __nv_bfloat16* g = reinterpret_cast<__nv_bfloat16*>(smem + (1 + s) * P::kPlanes);
     tc::bar_sync(kFull + s, P::kThreads);
+    // C2^T = Fi G^T, then B2^T = bf16(C2^T * conj(T)) as the second
+    // product's A, the twiddle read from L2 after each chunk's product. The
+    // twiddle's and the wire's lane addresses are made where they are used
+    // (tc::lane_id): hoisted out of the loop they held registers through
+    // the first product and spilled.
     uint32_t cre[M / 16][4], cim[M / 16][4];
-    inverse_tc_first<M>(tab, win + s * 2 * P::kPlane, Tw, r0, cre, cim);
-    // G is consumed: the producers may refill its buffer.
-    if (j + 2 < n_local) tc::bar_arrive(kEmpty + s, P::kThreads);
-    WireChunk<M> epi{st, r0, out + b * (M * M)};
-    inverse_tc_centre<M>(cre, cim, tab, epi);
+#pragma unroll
+    for (int cc = 0; cc < M / tc::kChunk; ++cc) {
+      float are[tc::kChunkTiles][4], aim[tc::kChunkTiles][4];
+      inverse_first<M>(fr, fi, g, g + W, cc, are, aim);
+      tc::twiddle_to_a<M, true>(are, aim, Tw, r0, cc, cre, cim, tc::lane_id());
+    }
+    tc::bar_sync(kConsumed, P::kConsumers);
+    if (threadIdx.x == 0 && j + 2 < n_local) {
+      fence_for_wgmma();   // after the ramp warps' stores to the buffer, before the copy's
+      stage_spectrum<M>(dre, dim, b + 2 * static_cast<size_t>(gridDim.x), g, bars + s);
+    }
+    // y^T = B2^T Fi on the centre columns n2 in [m/4, 3m/4), to the wire.
+    WireChunk<M> epi{st, r0, out + b * W, tc::lane_id()};
+#pragma unroll 1
+    for (int n0 = M / 4; n0 < 3 * M / 4; n0 += tc::kChunk) {
+      float yre[tc::kChunkTiles][4], yim[tc::kChunkTiles][4];
+      inverse_second<M>(cre, cim, tab, tab + W, n0, yre, yim);
+      epi(n0, yre, yim);
+    }
   }
 }
 
@@ -245,19 +465,29 @@ apply_spec_kernel(const __nv_bfloat16* __restrict__ dre, const __nv_bfloat16* __
                   const float2* __restrict__ Tw, int8_t* __restrict__ out, int B) {
   using P = ApplySpecPlan<M>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tab = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* win = tab + 2 * P::kPlane;
-  unsigned char* stage = reinterpret_cast<unsigned char*>(win + 4 * P::kPlane);
-
-  load_table<M, P::kThreads>(Fi, tab);
-  __syncthreads();
-
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::kBars);
   const int grid = static_cast<int>(gridDim.x);
   const int n_local = (B - static_cast<int>(blockIdx.x) + grid - 1) / grid;
-  if (threadIdx.x >= P::kConsumers)
-    produce_g<M>(dre, dim, advance, phase_re, phase_im, win, n_local);
-  else
-    consume_g<M>(tab, win, stage, Tw, out, n_local);
+
+  if (threadIdx.x == 0) {
+    cl::mbar_init(bars, 1);
+    cl::mbar_init(bars + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_table<M, P::kThreads, true>(Fi, reinterpret_cast<__nv_bfloat16*>(smem));
+  fence_for_wgmma();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int j = 0; j < 2 && j < n_local; ++j)
+      stage_spectrum<M>(dre, dim, blockIdx.x + static_cast<size_t>(j) * grid,
+                        reinterpret_cast<__nv_bfloat16*>(smem + (1 + j) * P::kPlanes), bars + j);
+  if (threadIdx.x >= P::kConsumers) {
+    if constexpr (M == 128) tc::setmaxnreg_dec<kRampRegs>();
+    ramp_windows<M>(advance, phase_re, phase_im, smem, bars, n_local);
+  } else {
+    if constexpr (M == 128) tc::setmaxnreg_inc<kConsumerRegs>();
+    consume_windows<M>(dre, dim, Tw, out, smem, bars, n_local);
+  }
 }
 
 // The one-CTA body of the recompute applies: load(w) fills the window's
@@ -320,7 +550,8 @@ apply_i8_kernel(const int8_t* __restrict__ raw, const float* __restrict__ advanc
       [&](__nv_bfloat16* w) { load_window_i8<M>(raw + win * W, static_cast<size_t>(N) * W, w); },
       [&] { return Ramp<M>(advance[win], phase_re[win], phase_im[win]); },
       [&](unsigned char* stage, int warp) {
-        return WireChunk<M>{stage + warp * kWireStage, warp * 16, out + win * W};
+        return WireChunk<M>{stage + warp * kWireStage, warp * 16, out + win * W,
+                            static_cast<int>(threadIdx.x & 31)};
       });
 }
 

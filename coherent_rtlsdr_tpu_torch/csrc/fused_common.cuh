@@ -26,7 +26,10 @@
 //   * the inverse's overlap-save centre, inverse_tc_first then
 //     inverse_tc_centre, whose per-chunk epilogue writes int8 wire bytes
 //     through a per-warp staging tile (WireChunk) or float32 samples
-//     straight to device memory (FloatChunk).
+//     straight to device memory (FloatChunk);
+//   * the persistent kernels' Hopper parts (the i8 channel measure and the
+//     handoff apply at m in {64, 128}): the copy engine's bulk loads and
+//     the proxy fence before wgmma.
 
 #pragma once
 
@@ -321,16 +324,17 @@ __device__ __forceinline__ int stage_offset(int row, int col) {
 // quantized into the window's wire block out [m/2, 2m], where row n2 - m/4
 // holds (re, im) of column n1 at bytes 2 n1, 2 n1 + 1, so the strip is 32
 // contiguous bytes of each row. The chunk goes through the warp's staging
-// tile `st` (kWireStage bytes) and out as 16-byte stores, two lanes a row.
+// tile `st` (kWireStage bytes) and out as 16-byte stores, two lanes a row;
+// `lane` is this thread's lane (tc::lane_id() where registers are short).
 template <int M>
 struct WireChunk {
   unsigned char* st;
   int r0;
   int8_t* out;
+  int lane;
 
   __device__ __forceinline__ void operator()(int n0, const float (&yre)[tc::kChunkTiles][4],
                                              const float (&yim)[tc::kChunkTiles][4]) {
-    const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     // Accumulator (jt, 2 hh + e): staged row n2 - n0, bytes 2 (g + 8 hh).
 #pragma unroll
@@ -380,5 +384,26 @@ struct FloatChunk {
         }
   }
 };
+
+// --- The persistent kernels' Hopper parts (fused_measure.cu: measure_kernel;
+// fused_apply.cu: apply_spec_kernel): the copy engine's loads into shared
+// memory and the proxy fence before wgmma reads what threads wrote.
+
+// `bytes` (a multiple of 16) from device memory at `src` into this CTA's
+// shared memory at `dst`, both 16-byte aligned, by the copy engine
+// (cp.async.bulk), completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(tc::smem_addr(dst)), "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
+      : "memory");
+}
+
+// The proxy fence after generic stores to shared memory that wgmma (the
+// async proxy) reads next.
+__device__ __forceinline__ void fence_for_wgmma() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 }  // namespace fused

@@ -163,17 +163,6 @@ __device__ __forceinline__ void block_sums(float (&v)[K], float* red) {
   }
 }
 
-// `bytes` (a multiple of 16) from device memory at `src` into this CTA's
-// shared memory at `dst`, both 16-byte aligned, by the copy engine
-// (cp.async.bulk), completing on the mbarrier `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(tc::smem_addr(dst)), "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
-      : "memory");
-}
-
 // The int8 window at `top` (its first block; the second `next` bytes on)
 // into the staging slot, both blocks in order, by one thread: the slot's
 // barrier armed with both copies' bytes.
@@ -184,12 +173,6 @@ __device__ __forceinline__ void stage_window(const int8_t* top, size_t next, int
   cl::mbar_arm(bar, 2 * kBlock);
   bulk_load(slot, top, kBlock, bar);
   bulk_load(slot + kBlock, top + next, kBlock, bar);
-}
-
-// The proxy fence after generic stores to shared memory that wgmma (the
-// async proxy) reads next.
-__device__ __forceinline__ void fence_for_wgmma() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The staged window (2 m^2 bytes) into tiled bf16 re / im planes at `win`

@@ -4,8 +4,9 @@
 // fragment loads, the mma.sync m16n8k16 bf16 x bf16 -> f32 product, the
 // twiddle, the complex products of a warp's 16-row strip, the warpgroup
 // product wgmma (the m = 256 cluster kernels, fused_cluster.cuh, and the
-// channel measures at m = 64 / 128, fused_measure.cu), named
-// barriers between the warps of a warp-specialised block, and the
+// channel measures at m = 64 / 128, fused_measure.cu; the persistent handoff
+// apply, fused_apply.cu), named barriers between the warps of a
+// warp-specialised block and the split of its registers, and the
 // persistent grid.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -185,16 +186,26 @@ __device__ __forceinline__ void strip_product(const __nv_bfloat16* lre, const __
   }
 }
 
+// This thread's lane, read where the call stands: the compiler cannot hoist
+// it, or the addresses made from it, out of a loop, where they would hold
+// registers through the whole body.
+__device__ __forceinline__ int lane_id() {
+  int l;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(l));
+  return l;
+}
+
 // Chunk cc of strip_product, twiddled (twiddle<CONJ> by T, float32 [M, M],
 // read from L2) and rounded to bf16, into the strip's A fragments (cre, cim)
 // of the next product: the tiles of chunk cc are its k steps 2cc, 2cc + 1.
+// `lane` is this thread's lane (lane_id() where registers are short).
 template <int M, bool CONJ>
 __device__ __forceinline__ void twiddle_to_a(const float (&are)[kChunkTiles][4],
                                              const float (&aim)[kChunkTiles][4],
                                              const float2* __restrict__ Tw, int r0, int cc,
                                              uint32_t (&cre)[M / 16][4],
-                                             uint32_t (&cim)[M / 16][4]) {
-  const int lane = threadIdx.x & 31;
+                                             uint32_t (&cim)[M / 16][4],
+                                             int lane = static_cast<int>(threadIdx.x & 31)) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int jt = 0; jt < kChunkTiles; ++jt) {
@@ -262,6 +273,16 @@ __device__ __forceinline__ uint64_t desc_k(const void* p, uint32_t lbo, uint32_t
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
+// The descriptor `d` moved on by BYTES (a multiple of 16) of shared memory:
+// its start address, the low field, as an add the compiler leaves where it
+// stands, so that a product's k steps hold one descriptor an operand rather
+// than all of them at once.
+template <uint32_t BYTES>
+__device__ __forceinline__ void desc_advance(uint64_t& d) {
+  static_assert(BYTES % 16 == 0, "descriptors address 16-byte units");
+  asm volatile("add.s64 %0, %0, %1;\n" : "+l"(d) : "n"(BYTES >> 4));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -314,6 +335,20 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 8][4], const uint32_t (&a)[
     wgmma_n64<SCALE_A, TRANS_B>(d, a, b);
   else
     wgmma_n32<SCALE_A, TRANS_B>(d, a, b);
+}
+
+// The warpgroup's registers a thread (sm_90a; every thread of the
+// warpgroup executes it): dec gives registers back to the CTA's pool, inc
+// takes them from it (waiting until they are there), so that the warpgroups
+// of a warp-specialised block can split the register file unevenly.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Named barriers (id 1..15; 0 is __syncthreads): `count` threads, a multiple

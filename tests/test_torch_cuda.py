@@ -225,6 +225,68 @@ def test_apply_kernels_match_plain_at_pipeline_shapes_on_card(shape, m, cuda_dev
         assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
 
 
+def _spec_apply_args(m, t, n, dev):
+    """The bf16 spectra D of correlated bytes (the plain measure's) and
+    advances (among them a large negative and a fractional one) and phase
+    factors for ``apply_spec_i8`` at T = t blocks of n channels."""
+    k = FusedPipelineKernels(m * m, dev)
+    raw, ref_raw = _blocks("correlated", m, dev, t, n)
+    spec = k.measure_spec_plain(raw, *k.measure_ref_plain(ref_raw))
+    g = torch.Generator(device=dev).manual_seed(m + t)
+    adv = (torch.rand((t - 1, n), generator=g, device=dev) - 0.5) * 80.0
+    adv.view(-1)[0] = -1500.25
+    adv.view(-1)[-1] = 1023.5
+    ph = torch.rand((t - 1, n), generator=g, device=dev) * 6.283185307179586
+    k.reset_counts()
+    return k, (spec[5], spec[6], adv, torch.cos(ph), torch.sin(ph))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128])
+def test_apply_spec_kernel_matches_plain_at_offline_shape_on_card(m, cuda_device):
+    """The persistent handoff apply at an offline call's shape (2,097,152
+    samples a channel, 21 channels: at m = 128 T = 256, 5,355 windows, ~41
+    a CTA of the grid), so that both window buffers change hands many times:
+    one launch, the wire bars against the plain version."""
+    t, n = MEASURE_SHAPES["offline"](m)
+    k, args = _spec_apply_args(m, t, n, cuda_device)
+    got = k.apply_spec_i8(*args)
+    want = k.apply_spec_i8_plain(*args)
+    torch.cuda.synchronize()
+    assert (k.apply_spec_i8_launches, k.apply_spec_i8_plain_runs) == (1, 1)
+    assert got.dtype == torch.int8 and got.shape == (t - 1, n, m // 2, 2 * m)
+    assert want.int().abs().max().item() >= 8
+    d = (got.int() - want.int()).abs()
+    assert d.max().item() <= 2 and (d > 1).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 128, 256])
+def test_apply_spec_kernel_replays_in_cuda_graph_on_card(m, cuda_device):
+    """The handoff apply captured in a CUDA graph at the flood's shape (one
+    server block of 21 channels), as the server's graphed step captures it,
+    then replayed on other spectra in the captured input: the eager
+    launch's wire bytes on those spectra, bit for bit."""
+    k, (dre, dim, *rest) = _spec_apply_args(m, MEASURE_SHAPES["stream"](m)[0], 21, cuda_device)
+    static = [dre.clone(), dim.clone()]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        k.apply_spec_i8(*static, *rest)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        wire = k.apply_spec_i8(*static, *rest)
+    other = [torch.roll(x, 1, dims=1).contiguous() for x in (dre, dim)]
+    for s, o in zip(static, other):
+        s.copy_(o)
+    graph.replay()
+    want = k.apply_spec_i8(*other, *rest)
+    torch.cuda.synchronize()
+    assert torch.equal(wire, want)
+    assert not torch.equal(wire, k.apply_spec_i8(dre, dim, *rest))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "correlated"])
 def test_rows_4_to_7_match_plain_at_m256_on_card(kind, cuda_device):
